@@ -6,8 +6,9 @@ Phases (any failure raises and exits nonzero, and no result line prints):
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
    both TF32 flags (set explicitly), and the kernel build time.
-2. Kernels: builds every CUDA kernel of the tokens_grid path from the
-   sources in this checkout and holds each against its plain PyTorch
+2. Kernels: builds every CUDA kernel of the port from the sources in this
+   checkout (one nvcc per kernel, all at once), and holds the flash
+   kernel against its plain PyTorch
    version on the card at the shapes and types the main path gives it
    (bf16 in memory attention, fp32 at Hiera's global blocks, whose shape
    is checked in bf16 too), and shows the limits reject a wrong key tile;
@@ -24,6 +25,21 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    the card (fp32, fused thresholds lowered so the kernel runs) against the
    CPU, which runs the kernel's plain version; and the encoder's bf16
    drift at that size.
+5. The deformable sampling kernel against its plain version on the card, at
+   GroundingDINO's encoder (E = 1 and 4 expressions over the 800x1333
+   canvas's four levels) and decoder (E = 4 x 900 queries) shapes in fp32
+   and bf16, plus ragged check-only shapes; shows the limits reject a
+   one-pixel shift and a dropped point; times kernel, plain version and
+   bound (no single PyTorch call computes this function).
+6. The GroundingDINO path: Swin-T + BERT-base (GDINOConfig defaults) and
+   SAM2 hiera-L with seeded random weights, prompts_gdino.main then
+   tokens_gdino.main on a synthetic 12-frame 480x854 video with 3
+   expressions; checks the prompt JSON's schema, a tracked prompt per
+   expression, the written masklets and tokens, and the kernels' launches
+   by call site (deformable: encoder and decoder, 6 + 6 per forward; flash:
+   SAM2 image encode, video encode, propagation).
+7. A small reference for that path: both stages at GDINOConfig.tiny_test
+   and SAM2Config.tiny_test on the card (fp32) against the CPU.
 
 The second-to-last line is a JSON object listing every ported kernel; the
 line before it is the card's name and power limit; the last line is
@@ -227,8 +243,693 @@ def check_flash_kernel(fa, gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 5: the deformable sampling kernel against its plain version
 # ---------------------------------------------------------------------------
+
+# GroundingDINO's level shapes on its 800x1333 canvas (Swin-T strides 8, 16,
+# 32 and the extra stride-64 conv): no side is a multiple of any tile
+GDINO_LEVELS = ((100, 167), (50, 84), (25, 42), (13, 21))
+
+
+def deform_inputs(gen, b, lq, levels, heads, head_dim, points, dtype,
+                  encoder: bool):
+    """Values, locations and weights as the path hands them to the kernel:
+    encoder queries sample near their own position (their reference point
+    plus a few pixels of offset), decoder queries near random boxes; one
+    location in eight is drawn over [-0.2, 1.2], so corners fall outside
+    the map. Weights are softmaxed over levels x points."""
+    n_lv = len(levels)
+    s = sum(h * w for h, w in levels)
+    value = torch.randn(b, s, heads * head_dim, generator=gen)
+    if encoder:
+        refs = []
+        for h, w in levels:
+            gy, gx = torch.meshgrid((torch.arange(h) + 0.5) / h,
+                                    (torch.arange(w) + 0.5) / w,
+                                    indexing="ij")
+            refs.append(torch.stack([gx, gy], -1).reshape(-1, 2))
+        ref = torch.cat(refs)[:lq]
+    else:
+        ref = torch.rand(lq, 2, generator=gen)
+    px = torch.tensor([[1.0 / w, 1.0 / h] for h, w in levels])
+    loc = (ref[None, :, None, None, None, :]
+           + 2.0 * torch.randn(b, lq, heads, n_lv, points, 2, generator=gen)
+           * px[None, None, None, :, None, :])
+    wild = torch.rand(b, lq, heads, n_lv, points, 1, generator=gen) < 0.125
+    loc = torch.where(wild, torch.rand(loc.shape, generator=gen) * 1.4 - 0.2,
+                      loc)
+    wgt = torch.softmax(torch.randn(b, lq, heads, n_lv * points,
+                                    generator=gen), -1).reshape(
+        b, lq, heads, n_lv, points)
+    return (value.cuda().to(dtype), loc.cuda(), wgt.cuda().to(dtype))
+
+
+def deform_cases():
+    """(name, site, dtype, b, lq, levels, heads, head_dim, points, encoder)
+    at the main path's shapes: the encoder's self-attention over every
+    position of the canvas (E = 1 and E = 4 expressions) and the decoder's
+    900 queries (E = 4), fp32 (the CLI default) and bf16 (--bf16); then
+    check-only shapes for the kernel's other branches (head_dim < 32 and
+    > 32, more than 32 level x point terms)."""
+    lq_enc = sum(h * w for h, w in GDINO_LEVELS)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "" if dtype == torch.float32 else "_bf16"
+        cases += [(f"encoder_e1{tag}", "encoder", dtype, 1, lq_enc,
+                   GDINO_LEVELS, 8, 32, 4, True),
+                  (f"encoder_e4{tag}", "encoder", dtype, 4, lq_enc,
+                   GDINO_LEVELS, 8, 32, 4, True),
+                  (f"decoder_e4{tag}", "decoder", dtype, 4, 900,
+                   GDINO_LEVELS, 8, 32, 4, False)]
+    small = ((23, 37), (12, 19), (6, 10))
+    cases += [("ragged_d16", "check", torch.float32, 2, 333, small, 2, 16, 3,
+               False),
+              ("ragged_d48_bf16", "check", torch.bfloat16, 2, 333, small, 3,
+               48, 3, False),
+              ("terms_40", "check", torch.float32, 2, 300, small + ((3, 5),),
+               4, 32, 10, False)]
+    return cases
+
+
+def check_deform_kernel(gen) -> dict:
+    from sola_torch.ops import deformable_interp as di
+    from sola_torch.trackgen.gdino.deformable import ms_deform_attn_core
+    rows = []
+    for (name, site, dtype, b, lq, levels, heads, hd, points,
+         encoder) in deform_cases():
+        value, loc, wgt = deform_inputs(gen, b, lq, levels, heads, hd,
+                                        points, dtype, encoder)
+        out = di.ms_deform_attn(value, loc, wgt, levels)
+        torch.cuda.synchronize()
+        ref = ms_deform_attn_core(value, loc, wgt, levels).float()
+        err, tol, rms_err, rms_tol = out_errors(out, ref, dtype)
+        if not (err <= tol and rms_err <= rms_tol
+                and torch.isfinite(out.float()).all()):
+            raise AssertionError(
+                f"{name}: kernel disagrees with its plain version: max "
+                f"{err} (tol {tol}), rms {rms_err} (tol {rms_tol})")
+        # the limits must reject a wrong kernel output: level 0's samples
+        # shifted by one pixel in x, or point 0's weight dropped
+        w0 = levels[0][1]
+        shifted = loc.clone()
+        shifted[:, :, :, 0, :, 0] += 1.0 / w0
+        dropped = wgt.clone()
+        dropped[:, :, :, :, 0] = 0
+        wrong = {}
+        for what, (l_, w_) in (("shift", (shifted, wgt)),
+                               ("drop", (loc, dropped))):
+            e, _, r, _ = out_errors(ms_deform_attn_core(value, l_, w_,
+                                                        levels), ref, dtype)
+            if e <= tol and r <= rms_tol:
+                raise AssertionError(f"{name}: the limits accept a wrong "
+                                     f"output ({what}: max {e}, rms {r})")
+            wrong[what] = (e, r)
+        ms = cuda_ms(lambda: di.ms_deform_attn(value, loc, wgt, levels), 20)
+        plain_ms = cuda_ms(lambda: ms_deform_attn_core(value, loc, wgt,
+                                                       levels), 5)
+        # bytes: each input read once at the type the path hands it over,
+        # the output written once; 2 FLOPs per gathered element are far
+        # below the card's balance point, so bytes bound it
+        nbytes = (value.numel() * value.element_size()
+                  + loc.numel() * loc.element_size()
+                  + wgt.numel() * wgt.element_size()
+                  + out.numel() * out.element_size())
+        flops = 2.0 * 4 * b * lq * heads * len(levels) * points * hd
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        row = {"shape": name, "site": site, "dtype": str(dtype), "b": b,
+               "lq": lq, "levels": [list(hw) for hw in levels],
+               "heads": heads, "head_dim": hd, "points": points,
+               "max_abs_err": err, "max_abs_tol": tol, "rms_err": rms_err,
+               "rms_tol": rms_tol,
+               "ref_max_abs": ref.abs().max().item(),
+               "ref_rms": ref.square().mean().sqrt().item(),
+               "wrong_shift_max_rms": wrong["shift"],
+               "wrong_drop_max_rms": wrong["drop"],
+               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "gb_per_s": nbytes / ms / 1e6}
+        rows.append(row)
+        log(f"  {name:>16} {str(dtype)[6:]} b={b} lq={lq} heads={heads} "
+            f"d={hd} L={len(levels)} P={points}: max err {err:.3g} (tol "
+            f"{tol:.3g}), rms err {rms_err:.3g} (tol {rms_tol:.3g}); a "
+            f"1-px shift gives max/rms {wrong['shift'][0]:.3g}/"
+            f"{wrong['shift'][1]:.3g}, a dropped point "
+            f"{wrong['drop'][0]:.3g}/{wrong['drop'][1]:.3g}; kernel_ms "
+            f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}), "
+            f"{row['gb_per_s']:.0f} GB/s of unique bytes")
+        del value, loc, wgt, out, ref
+    torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the GroundingDINO path, prompts_gdino -> tokens_gdino
+# ---------------------------------------------------------------------------
+
+GD_BIN = 4
+GD_EXPRESSIONS = {"0": {"exp": "the red box moving right", "anno_id": [0]},
+                  "1": {"exp": "a green ellipse", "anno_id": [1]},
+                  "2": {"exp": "the blue square moving up", "anno_id": [2]}}
+PROMPT_KEYS = {"segmentation", "stability_score", "score", "area",
+               "area_ratio", "frame_idx", "pred_bbox", "pred_phrase",
+               "token_score", "expression_id", "metrics", "prompt_id"}
+
+
+class SiteCounter:
+    """How much a kernel wrapper's launch counter grew while given modules
+    ran their forwards, by call site. The wrapper alone counts; the hooks
+    only read its counter before and after each forward."""
+
+    def __init__(self, counter_module):
+        self.mod = counter_module
+        self.counts = {}
+        self._starts = []
+
+    def watch(self, site: str, modules) -> None:
+        self.counts.setdefault(site, 0)
+        for m in modules:
+            m.register_forward_pre_hook(
+                lambda *_: self._starts.append(self.mod.launches))
+            m.register_forward_hook(lambda *_, site=site: self._add(site))
+
+    def _add(self, site: str) -> None:
+        self.counts[site] += self.mod.launches - self._starts.pop()
+
+    def reset(self) -> None:
+        self.counts = dict.fromkeys(self.counts, 0)
+
+
+def deform_sites(grounding) -> SiteCounter:
+    """The deformable kernel's launches at GroundingDINO's encoder and
+    decoder (each MSDeformAttn module of either)."""
+    from sola_torch.ops import deformable_interp as di
+    from sola_torch.trackgen.gdino.deformable import MSDeformAttn
+    sites = SiteCounter(di)
+    for site in ("encoder", "decoder"):
+        sites.watch(site, [m for n, m in grounding.model.named_modules()
+                           if isinstance(m, MSDeformAttn)
+                           and n.startswith(f"model.{site}.")])
+    return sites
+
+
+def write_workspace(root: str, vid: str, frames, masks) -> None:
+    """A MeViS-layout valid_u split of one video: lossless PNG frames,
+    meta_expressions.json with GD_EXPRESSIONS, and mask_dict.json holding
+    each object's per-frame RLE (the GT the prompt stage tags IoU with)."""
+    from PIL import Image
+
+    from sola_torch.core import rle
+    data_dir = os.path.join(root, "datasets", "mevis", "valid_u")
+    frames_dir = os.path.join(data_dir, "JPEGImages", vid)
+    os.makedirs(frames_dir)
+    for t, f in enumerate(frames):
+        Image.fromarray(f).save(os.path.join(frames_dir, f"{t:05d}.png"))
+    with open(os.path.join(data_dir, "meta_expressions.json"), "w") as f:
+        json.dump({"videos": {vid: {
+            "frames": [f"{t:05d}" for t in range(len(frames))],
+            "expressions": GD_EXPRESSIONS}}}, f)
+    annos = {a for e in GD_EXPRESSIONS.values() for a in e["anno_id"]}
+    with open(os.path.join(data_dir, "mask_dict.json"), "w") as f:
+        json.dump({str(a): [rle.encode(m[a]) for m in masks] for a in annos},
+                  f)
+
+
+def box_gate(grounding, frame, keep: int) -> float:
+    """A box threshold that keeps about ``keep`` boxes per expression on
+    ``frame``: random weights score almost every query above the CLI's
+    0.2. Halfway between the keep-th and the next score, and the least of
+    these over the expressions, so each keeps at least ``keep``."""
+    texts = [e["exp"] for e in GD_EXPRESSIONS.values()]
+    gates = []
+    for preds in grounding.get_boxes_many(frame, texts, box_threshold=-1.0):
+        s = sorted((max(p["token_score"]) for p in preds), reverse=True)
+        gates.append(0.5 * (s[keep - 1] + s[keep]))
+    return min(gates)
+
+
+def stability_gate(info: dict) -> float:
+    """A stability threshold that lets about half of each expression's
+    prompts reach propagation (random weights give low stability scores):
+    halfway between the two middle scores, the least over the
+    expressions."""
+    gates = []
+    for e in GD_EXPRESSIONS:
+        s = sorted(p["stability_score"] for p in info["prompt_masks"]
+                   if p["expression_id"] == e)
+        k = len(s) // 2
+        gates.append(s[0] if k == 0 else 0.5 * (s[k - 1] + s[k]))
+    return min(gates)
+
+
+def check_prompt_json(info: dict, vid: str, n_frames: int, hw) -> dict:
+    """The prompt JSON's schema and invariants; returns the box count of
+    each (frame, expression)."""
+    from sola_torch.core import rle
+    pms = info["prompt_masks"]
+    if info["video_id"] != vid or info["bin_size"] != GD_BIN or not pms:
+        raise AssertionError(f"prompt JSON head: {info['video_id']} "
+                             f"{info['bin_size']} {len(pms)} prompts")
+    counts = {}
+    for i, p in enumerate(pms):
+        annos = {str(a) for a in
+                 GD_EXPRESSIONS[p["expression_id"]]["anno_id"]}
+        m = rle.decode(p["segmentation"])
+        if (set(p) != PROMPT_KEYS or p["prompt_id"] != i
+                or p["frame_idx"] % GD_BIN or p["frame_idx"] >= n_frames
+                or m.shape != tuple(hw) or m.sum() != p["area"]
+                or not np.isfinite(p["pred_bbox"]).all()
+                or len(p["pred_bbox"]) != 4 or set(p["metrics"]) != annos
+                or not all(0.0 <= v["iou"] <= 1.0
+                           for v in p["metrics"].values())):
+            raise AssertionError(f"prompt {i} breaks the schema: "
+                                 f"{ {k: v for k, v in p.items() if k != 'segmentation'} }")
+        key = f"{p['frame_idx']}/{p['expression_id']}"
+        counts[key] = counts.get(key, 0) + 1
+    areas = [p["area"] for p in pms]
+    if areas != sorted(areas, reverse=True):
+        raise AssertionError("prompts are not sorted by area")
+    if {p["expression_id"] for p in pms} != set(GD_EXPRESSIONS):
+        raise AssertionError(f"an expression has no prompt: {counts}")
+    return counts
+
+
+def check_gdino_tracks(root: str, vid: str, census: dict, n_frames: int,
+                       hw, d_model: int) -> dict:
+    """Every expression tracked at least one prompt, and its written
+    masklets and tokens match its census; returns the tracks."""
+    from sola_torch.core import rle
+    from sola_torch.data import tracks
+    out = {}
+    for e in GD_EXPRESSIONS:
+        c = census[e]
+        if not 1 <= c["n_tracked"] <= c["n_total"]:
+            raise AssertionError(f"expression {e} census: {c}")
+        recs = tracks.load_track_records(
+            os.path.join(root, "sam2_tracks"), "gdino_tracks", "mevis",
+            "valid_u", vid, expression_id=e, use_index=False)
+        if sorted(r.sam2_anno_id for r in recs) != sorted(
+                c["tracked_prompt_ids"]):
+            raise AssertionError(f"expression {e}: written tracks differ "
+                                 f"from the census")
+        for rec in recs:
+            with open(rec.masklet_path) as f:
+                masklet = rle.decode_masklet(json.load(f)["rle"])
+            toks = np.load(rec.token_path)
+            if (masklet.shape != (n_frames, *hw)
+                    or toks.shape != (n_frames, d_model)
+                    or not np.isfinite(toks).all()):
+                raise AssertionError(f"expression {e} track "
+                                     f"{rec.sam2_anno_id}: masklet "
+                                     f"{masklet.shape}, tokens {toks.shape}")
+            out[(e, rec.sam2_anno_id)] = (masklet, toks)
+    return out
+
+
+def _cli_argv(root: str, device: str) -> list:
+    return ["--data_root", root, "--output_root", root, "--data_type",
+            "valid_u", "--bin_size", str(GD_BIN), "--device", device]
+
+
+def _sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def prompt_json_path(root: str, vid: str) -> str:
+    return os.path.join(root, "sam2_prompts", "gdino_prompts", "mevis",
+                        "valid_u", f"{vid}.json")
+
+
+def prompts_stage(root: str, vid: str, frames, masks, grounding, image_pred,
+                  device: str, box_thr: float):
+    """prompts_gdino.main over a fresh one-video workspace, the given
+    models behind its generator factory: (prompt JSON, seconds)."""
+    from sola_torch.trackgen import prompts_gdino
+    write_workspace(root, vid, frames, masks)
+    t0 = time.perf_counter()
+    prompts_gdino.main(
+        _cli_argv(root, device) + ["--box_threshold", repr(box_thr)],
+        generator_factory=lambda: prompts_gdino.PromptGenerator(
+            grounding, image_pred, box_threshold=box_thr))
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    with open(prompt_json_path(root, vid)) as f:
+        return json.load(f), seconds
+
+
+def tokens_stage(root: str, vid: str, video_pred, device: str,
+                 stab_thr: float):
+    """tokens_gdino.main on the workspace's prompt JSON, the given
+    predictor behind its factory: (the video's census, seconds)."""
+    from sola_torch.trackgen import tokens_gdino
+    t0 = time.perf_counter()
+    tokens_gdino.main(_cli_argv(root, device) + [
+        "--batch_size", "4", "--stability_score_thresh", repr(stab_thr)],
+        predictor_factory=lambda: video_pred)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(root, "sam2_tracks", "gdino_tracks", "mevis",
+                           "valid_u", "runtime_info.json")) as f:
+        return json.load(f)[vid], seconds
+
+
+def host_ms(fn, iters: int = 3) -> float:
+    """Mean wall ms of ``fn`` over ``iters`` runs, each ended by a
+    synchronize, after one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def profile_forward(fn) -> dict:
+    """One warm run of ``fn`` under torch.profiler: the device's busy time
+    (the union of its kernels' intervals) against the host's wall time of
+    the run, and the deformable kernel's share of the busy time. None where
+    the profiler records no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not kernels:
+        return {"wall_ms": wall_us / 1e3, "busy_ms": None,
+                "idle_share": None, "deform_ms": None, "kernels": 0}
+    busy, end = 0.0, -1.0
+    for s, e, _ in kernels:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    deform = sum(e - s for s, e, n in kernels if "ms_deform" in n)
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall_us, "deform_ms": deform / 1e3,
+            "deform_share_of_busy": deform / busy, "kernels": len(kernels)}
+
+
+def gdino_breakdown(grounding, image_pred, frame) -> dict:
+    """Where a binned frame's time goes, warm, at the path's shapes: the
+    GroundingDINO forward over the 3 expressions (padded to 4), the SAM2
+    image encode, and the box -> mask decode of 12 boxes; and one
+    profiled forward."""
+    texts = [e["exp"] for e in GD_EXPRESSIONS.values()]
+    boxes = np.array([[40 + 60 * i, 30 + 30 * (i % 4), 200 + 50 * i,
+                       200 + 20 * (i % 5)] for i in range(12)], np.float32)
+
+    def forward():
+        grounding.enqueue_boxes(frame, texts)
+
+    image_pred.set_image(frame)
+    out = {"gdino_forward_ms": host_ms(forward),
+           "sam2_image_encode_ms": host_ms(lambda: image_pred.set_image(
+               frame)),
+           "box_to_mask_12_ms": host_ms(lambda: image_pred.predict_packed(
+               box=boxes)),
+           "gdino_forward_profile": profile_forward(forward)}
+    return out
+
+
+def run_gdino_path(fa, di) -> dict:
+    """Phase 6: GroundingDINO Swin-T + BERT-base (GDINOConfig defaults) and
+    SAM2 hiera-L, seeded random weights, built by the CLIs' own loaders;
+    prompts_gdino -> tokens_gdino on a synthetic 480x854 video."""
+    from sola_torch.trackgen import tokens_grid
+    from sola_torch.trackgen.gdino.model import load_grounding_dino
+    from sola_torch.trackgen.sam2.convert import load_sam2_image_predictor
+    sam2_ckpt = "pretrained_models/sam2_hiera_large.pt"  # absent: random
+    t0 = time.perf_counter()
+    grounding = load_grounding_dino(
+        "pretrained_models/groundingdino_swint_ogc.pth", device="cuda")
+    image_pred = load_sam2_image_predictor(sam2_ckpt, device="cuda")
+    video_pred = tokens_grid._default_predictor_factory(
+        sam2_ckpt, obj_batch=4, device="cuda")()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gcfg = grounding.cfg
+    log(f"  GroundingDINO: Swin embed {gcfg.swin.embed_dim} depths "
+        f"{gcfg.swin.depths}, text {gcfg.text.num_layers} x "
+        f"{gcfg.text.hidden_size}, d_model {gcfg.d_model}, "
+        f"{gcfg.enc_layers}+{gcfg.dec_layers} layers, {gcfg.num_queries} "
+        f"queries, {sum(p.numel() for p in grounding.model.parameters()) / 1e6:.1f}M"
+        f" params; SAM2 image {image_pred.cfg.image_size} px, video "
+        f"obj_batch {video_pred.obj_batch}; built in {build_s:.1f} s")
+    dsites = deform_sites(grounding)
+    fsites = SiteCounter(fa)
+    fsites.watch("image_encode", [image_pred.model.image_encoder])
+    fsites.watch("video_encode", [video_pred.model.image_encoder])
+    vid = "synthetic_gdino"
+    frames, masks = synthetic_video(5)
+    # the probe warms GroundingDINO up; one box -> mask call warms SAM2's
+    # image predictor, so the path below is timed warm
+    box_thr = box_gate(grounding, frames[0], keep=3)
+    image_pred.set_image(frames[0])
+    image_pred.predict_packed(box=np.array([[100, 80, 260, 200]],
+                                           np.float32))
+    root = os.path.join(OUT_DIR, "gdino")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = di.launches = 0  # the path's counts start here
+    dsites.reset()
+    fsites.reset()
+    info, prompts_s = prompts_stage(root, vid, frames, masks, grounding,
+                                    image_pred, "cuda", box_thr)
+    stab_thr = stability_gate(info)
+    census, tokens_s = tokens_stage(root, vid, video_pred, "cuda", stab_thr)
+    launches = {"flash_attn_fwd": fa.launches,
+                "ms_deform_attn_fwd": di.launches}  # read right after
+    deform, flash = dict(dsites.counts), dict(fsites.counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    counts = check_prompt_json(info, vid, T_FRAMES, (H_VID, W_VID))
+    check_gdino_tracks(root, vid, census, T_FRAMES, (H_VID, W_VID),
+                       video_pred.cfg.d_model)
+    binned = len(range(0, T_FRAMES, GD_BIN))
+    chunks = binned * -(-len(GD_EXPRESSIONS) // grounding.max_expr_batch)
+    want = {"encoder": gcfg.enc_layers * chunks,
+            "decoder": gcfg.dec_layers * chunks}
+    flash["propagation"] = launches["flash_attn_fwd"] - sum(flash.values())
+    if (deform != want
+            or sum(deform.values()) != launches["ms_deform_attn_fwd"]
+            or min(flash.values()) <= 0):
+        raise AssertionError(f"kernel launches: deformable {deform} "
+                             f"(want {want}) of "
+                             f"{launches['ms_deform_attn_fwd']}, flash "
+                             f"{flash}")
+    tracked = sum(c["n_tracked"] for c in census.values())
+    track_s = sum(c["time"] for c in census.values())
+    row = {"box_threshold": box_thr,
+           "stability_score_thresh": stab_thr,
+           "boxes_per_frame_expression": counts,
+           "n_prompts": len(info["prompt_masks"]),
+           "census": {e: {k: c[k] for k in ("n_tracked", "n_filtered",
+                                             "n_not_used", "n_total")}
+                      for e, c in census.items()},
+           "prompts_main_s": prompts_s,
+           "prompt_frames_per_s": binned / prompts_s,
+           "tokens_main_s": tokens_s,
+           "tracking_s": track_s,
+           "object_fps": tracked * T_FRAMES / track_s,
+           "launches": launches, "deform_launches": deform,
+           "flash_launches": flash, "peak_memory_gb": peak_gb,
+           "build_s": build_s,
+           "breakdown": gdino_breakdown(grounding, image_pred, frames[0])}
+    log(f"  box_threshold {box_thr:.6f} (keeps >= 3 boxes per "
+        f"expression on frame 0), stability_score_thresh "
+        f"{stab_thr:.6f}; boxes per frame/expression "
+        f"{counts}")
+    log(f"  prompts_gdino.main: {binned} binned frames x "
+        f"{len(GD_EXPRESSIONS)} expressions in {prompts_s:.2f} s "
+        f"({row['prompt_frames_per_s']:.3f} frames/s, reading the frames "
+        f"included); tokens_gdino.main {tokens_s:.2f} s, tracking "
+        f"{track_s:.2f} s ({row['object_fps']:.2f} object-fps over "
+        f"{tracked} tracks); census {row['census']}")
+    log(f"  launches: deformable {deform} (want {want}), flash "
+        f"{flash}; peak memory {peak_gb:.2f} GB; card {smi_line()}")
+    bd = row["breakdown"]
+    prof = bd["gdino_forward_profile"]
+    log(f"  per binned frame, warm: GroundingDINO forward (E 3 -> 4) "
+        f"{bd['gdino_forward_ms']:.2f} ms, SAM2 image encode "
+        f"{bd['sam2_image_encode_ms']:.2f} ms, 12 boxes -> masks "
+        f"{bd['box_to_mask_12_ms']:.2f} ms; one profiled forward: "
+        + ("not measured (the profiler recorded no device kernel)"
+           if prof["busy_ms"] is None else
+           f"wall {prof['wall_ms']:.2f} ms, device busy "
+           f"{prof['busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f})"
+           f", deformable kernel {prof['deform_ms']:.2f} ms "
+           f"({prof['deform_share_of_busy']:.3f} of busy), "
+           f"{prof['kernels']} kernels"))
+    del grounding, image_pred, video_pred
+    torch.cuda.empty_cache()
+    return row
+
+
+def _small_frames():
+    """6 frames of 48x64 (they upscale on both axes to SAM2's 64, as
+    MeViS's 480x854 do to 1024) with three moving boxes, and their masks."""
+    rng = np.random.default_rng(3)
+    frames, masks = [], []
+    for t in range(6):
+        f = (rng.random((48, 64, 3)) * 40).astype(np.uint8)
+        objs = [np.zeros((48, 64), np.uint8) for _ in range(3)]
+        objs[0][8:24, 6 + 3 * t:22 + 3 * t] = 1
+        objs[1][28:44, 44 - 3 * t:58 - 3 * t] = 1
+        objs[2][30 - 2 * t:40 - 2 * t, 24:34] = 1
+        for color, m in zip(((220, 80, 40), (40, 200, 90), (60, 80, 240)),
+                            objs):
+            f[m > 0] = color
+        frames.append(f)
+        masks.append(objs)
+    return frames, masks
+
+
+def compare_prompt_json(got: dict, ref: dict) -> dict:
+    """``got`` against ``ref``: the same prompts (paired by frame,
+    expression and nearest box) with the same phrases; returns the largest
+    differences of boxes, scores and masks."""
+    from sola_torch.core import rle
+    pg, pr = got["prompt_masks"], ref["prompt_masks"]
+    if (got["video_id"], got["bin_size"], len(pg)) != (
+            ref["video_id"], ref["bin_size"], len(pr)):
+        raise AssertionError(f"prompt JSONs differ: {len(pg)} prompts "
+                             f"against {len(pr)}")
+    errs = dict.fromkeys(("box_px", "token_score", "score", "stability",
+                          "mask_pixels"), 0.0)
+    used = set()
+    for a in pr:
+        cands = [(np.abs(np.subtract(b["pred_bbox"], a["pred_bbox"])).max(),
+                  i) for i, b in enumerate(pg) if i not in used
+                 and (b["frame_idx"], b["expression_id"])
+                 == (a["frame_idx"], a["expression_id"])]
+        if not cands:
+            raise AssertionError(f"no prompt pairs with ref prompt "
+                                 f"{a['prompt_id']}")
+        dist, i = min(cands)
+        used.add(i)
+        b = pg[i]
+        if b["pred_phrase"] != a["pred_phrase"]:
+            raise AssertionError(f"phrases differ: {b['pred_phrase']!r} "
+                                 f"against {a['pred_phrase']!r}")
+        for key, e in (("box_px", dist),
+                       ("token_score", np.abs(np.subtract(
+                           b["token_score"], a["token_score"])).max()),
+                       ("score", abs(b["score"] - a["score"])),
+                       ("stability", abs(b["stability_score"]
+                                         - a["stability_score"])),
+                       ("mask_pixels", (rle.decode(b["segmentation"])
+                                        != rle.decode(a["segmentation"])
+                                        ).mean())):
+            errs[key] = max(errs[key], float(e))
+    return errs
+
+
+# card against CPU at tiny size, fp32 with TF32 off: boxes and scores only
+# differ by summation order; stability is a ratio of low-res pixel counts
+# (16 x 16 at tiny size), so one pixel at the +-1 logit edge moves it by
+# about 1/256; a mask logit at 0 may round either way
+SMALL_TOL = {"box_px": 1e-3, "token_score": 1e-4, "score": 1e-4,
+             "stability": 1e-2, "mask_pixels": 5e-3, "tokens": 1e-3,
+             "masklet_pixels": 1e-2}
+
+
+def run_gdino_small_reference(fa, di) -> dict:
+    """Phase 7: both stages at GDINOConfig.tiny_test and
+    SAM2Config.tiny_test on the card (fp32, the flash kernel's size
+    thresholds lowered so it runs) and on the CPU, which runs the kernels'
+    plain versions. The prompt JSONs must agree; the CPU's thresholds and
+    prompt JSON then feed both tracking runs, whose censuses must be
+    equal and whose tracks must agree."""
+    from sola_torch.trackgen.gdino.model import (GDINOConfig,
+                                                 load_grounding_dino)
+    from sola_torch.trackgen.sam2 import hiera, memory
+    from sola_torch.trackgen.sam2.convert import (build_sam2,
+                                                  load_sam2_image_predictor)
+    from sola_torch.trackgen.sam2.model import SAM2Config
+    from sola_torch.trackgen.sam2.video import SAM2VideoPredictor
+    frames, masks = _small_frames()
+    vid, hw = "small_gdino", frames[0].shape[:2]
+
+    def fused_everywhere(model):
+        for m in model.modules():
+            if isinstance(m, hiera.MultiScaleAttention):
+                m.fused_min_tokens = 1
+            if isinstance(m, memory.RoPEAttention):
+                m.fused_min_keys = 1
+        return model
+
+    runs, box_thr, stab_thr, ref_info = {}, None, None, None
+    for device in ("cpu", "cuda"):
+        grounding = load_grounding_dino(None, cfg=GDINOConfig.tiny_test(),
+                                        device=device, seed=1)
+        image_pred = load_sam2_image_predictor(
+            None, cfg=SAM2Config.tiny_test(64), device=device, seed=3,
+            compute_dtype=torch.float32)
+        fused_everywhere(image_pred.model)
+        video_pred = SAM2VideoPredictor(
+            fused_everywhere(build_sam2(cfg=SAM2Config.tiny_test(64), seed=3,
+                                        device=device)),
+            obj_batch=4, feature_dtype=torch.float32,
+            compute_dtype=torch.float32)
+        if box_thr is None:
+            box_thr = box_gate(grounding, frames[0], keep=3)
+        before = (fa.launches, di.launches)
+        root = os.path.join(OUT_DIR, f"gdino_small_{device}")
+        info, _ = prompts_stage(root, vid, frames, masks, grounding,
+                                image_pred, device, box_thr)
+        if ref_info is None:
+            ref_info, stab_thr = info, stability_gate(info)
+        else:  # the CPU's prompts feed this tracking run too
+            with open(prompt_json_path(root, vid), "w") as f:
+                json.dump(ref_info, f)
+        census, _ = tokens_stage(root, vid, video_pred, device, stab_thr)
+        runs[device] = {
+            "info": info, "census": census,
+            "launches": (fa.launches - before[0], di.launches - before[1]),
+            "tracks": check_gdino_tracks(root, vid, census, len(frames), hw,
+                                         video_pred.cfg.d_model)}
+    cpu, card = runs["cpu"], runs["cuda"]
+    if min(card["launches"]) == 0 or max(cpu["launches"]) != 0:
+        raise AssertionError(f"small reference launches (flash, deformable):"
+                             f" card {card['launches']}, cpu "
+                             f"{cpu['launches']}")
+    check_prompt_json(card["info"], vid, len(frames), hw)
+    errs = compare_prompt_json(card["info"], cpu["info"])
+    strip = lambda c: {k: v for k, v in c.items() if k not in ("time", "fps")}
+    if ({e: strip(c) for e, c in card["census"].items()}
+            != {e: strip(c) for e, c in cpu["census"].items()}
+            or sorted(card["tracks"]) != sorted(cpu["tracks"])):
+        raise AssertionError(f"censuses differ: card {card['census']} cpu "
+                             f"{cpu['census']}")
+    errs["tokens"] = max(float(np.abs(card["tracks"][k][1]
+                                      - cpu["tracks"][k][1]).max())
+                         for k in cpu["tracks"])
+    errs["masklet_pixels"] = max(float((card["tracks"][k][0]
+                                        != cpu["tracks"][k][0]).mean())
+                                 for k in cpu["tracks"])
+    bad = {k: (v, SMALL_TOL[k]) for k, v in errs.items() if v > SMALL_TOL[k]}
+    if bad:
+        raise AssertionError(f"card vs cpu beyond tolerance: {bad}")
+    n_tracked = {e: c["n_tracked"] for e, c in cpu["census"].items()}
+    log(f"  tiny_test on the card vs the CPU (fp32, kernel route; launches "
+        f"flash/deformable {card['launches']}): "
+        f"{len(cpu['info']['prompt_masks'])} prompts agree, censuses equal "
+        f"(tracked {n_tracked}), largest differences {errs} (limits "
+        f"{SMALL_TOL})")
+    return {"errors": errs, "limits": SMALL_TOL, "box_threshold": box_thr,
+            "stability_score_thresh": stab_thr, "n_tracked": n_tracked,
+            "card_launches": card["launches"]}
+
 
 def synthetic_video(seed: int):
     """12 frames of moving shapes on textured noise, and the 3 objects'
@@ -388,12 +1089,13 @@ def encoder_drift(predictor, frames, seed: int) -> dict:
     seed, on the same frames: the precision the encode frames/s is
     bought at."""
     from sola_torch.trackgen.sam2.convert import build_sam2
-    from sola_torch.trackgen.sam2.video import SAM2VideoPredictor
+    from sola_torch.trackgen.sam2.video import SAM2VideoPredictor, encode_raw
     ref_pred = SAM2VideoPredictor(
         build_sam2(cfg=predictor.cfg, seed=seed, device="cuda"),
         feature_dtype=torch.float32, compute_dtype=torch.float32)
     raw = torch.from_numpy(np.stack(frames)).cuda()
-    ours, ref = predictor._encode_raw(raw), ref_pred._encode_raw(raw)
+    ours = encode_raw(predictor.model, raw, predictor.compute_dtype)
+    ref = encode_raw(ref_pred.model, raw, ref_pred.compute_dtype)
     drift = {}
     for key in ("s0", "s1", "pix"):
         d, r = ours[key].float() - ref[key], ref[key]
@@ -527,6 +1229,7 @@ def run_small_reference(fa) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
+    from sola_torch.ops import deformable_interp as di
     from sola_torch.ops import flash_attention as fa
     from sola_torch.ops import kernel_build
 
@@ -541,17 +1244,18 @@ def main() -> None:
     os.makedirs(OUT_DIR)
 
     t0 = time.perf_counter()
-    fa._library()
-    build = kernel_build.build_info["flash_attn_fwd"]
-    log(f"kernel build: flash_attn_fwd in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {build['seconds']:.2f} s)")
+    kernel_build.build_all()  # one nvcc per kernel, all started together
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s for "
+        + ", ".join(f"{name} (nvcc {info['seconds']:.2f} s)"
+                    for name, info in kernel_build.build_info.items()))
     ptxas = []
-    for ln in build["log"].splitlines():
-        if "Compiling entry function" in ln:  # names the instance below
-            ptxas.append("flash_fwd_kernel<" + (
-                "bf16" if "bfloat16" in ln else "float") + ">:")
-        elif "registers" in ln or "spill" in ln:
-            ptxas.append(ln.strip())
+    for name, info in kernel_build.build_info.items():
+        for ln in info["log"].splitlines():
+            if "Compiling entry function" in ln:  # names the instance below
+                ptxas.append(f"{name}<" + (
+                    "bf16" if "bfloat16" in ln else "float") + ">:")
+            elif "registers" in ln or "spill" in ln:
+                ptxas.append(ln.strip())
     for ln in ptxas:
         log(f"  ptxas: {ln}")
 
@@ -559,28 +1263,59 @@ def main() -> None:
     log("phase 2: flash kernel vs its plain version")
     kernel = check_flash_kernel(fa, gen)
     log("phase 3: tokens_grid main path at SAM2 hiera-L")
+    di.launches = 0  # run_main_path zeroes the flash count itself
     main_path = run_main_path(fa)
+    main_path["deform_launches"] = di.launches  # the path has no GDINO
     log("phase 4: small reference")
     small = run_small_reference(fa)
+    log("phase 5: deformable sampling kernel vs its plain version")
+    deform = check_deform_kernel(gen)
+    log("phase 6: prompts_gdino -> tokens_gdino at GroundingDINO Swin-T + "
+        "BERT-base and SAM2 hiera-L")
+    gdino_path = run_gdino_path(fa, di)
+    log("phase 7: GroundingDINO small reference")
+    gdino_small = run_gdino_small_reference(fa, di)
 
     head = kernel["rows"][0]  # memory cross-attention: most of the time
+    # the main path's shape: 3 expressions padded to 4, fp32 (CLI default)
+    dhead = next(r for r in deform["rows"] if r["shape"] == "encoder_e4")
+    by_path = {
+        "flash_attn_fwd": {"tokens_grid": main_path["launches"],
+                           "gdino": gdino_path["launches"]["flash_attn_fwd"]},
+        "ms_deform_attn_fwd": {
+            "tokens_grid": main_path["deform_launches"],
+            "gdino": gdino_path["launches"]["ms_deform_attn_fwd"]}}
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "sola_torch/csrc/flash_attn_fwd.cu",
         "replaces": "sola_tpu/ops/flash_attention.py:64",
-        "launches": main_path["launches"],
+        "launches": sum(by_path["flash_attn_fwd"].values()),
         "max_abs_err": max(r["max_abs_err"] for r in kernel["rows"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "at": head["shape"], "shapes": kernel["rows"]}]
+        "at": head["shape"], "launches_by_path": by_path["flash_attn_fwd"],
+        "shapes": kernel["rows"]}, {
+        "name": "ms_deform_attn_fwd", "route": "cuda",
+        "source": "sola_torch/csrc/ms_deform_attn_fwd.cu",
+        "replaces": "sola_tpu/ops/deformable_interp.py:42",
+        "launches": sum(by_path["ms_deform_attn_fwd"].values()),
+        "max_abs_err": max(r["max_abs_err"] for r in deform["rows"]),
+        "ms": dhead["ms"], "plain_ms": dhead["plain_ms"],
+        "bound_ms": dhead["bound_ms"], "bound_by": dhead["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it
+        "at": dhead["shape"],
+        "launches_by_path": by_path["ms_deform_attn_fwd"],
+        "shapes": deform["rows"]}]
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"card": smi, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "kernels": kernels,
                    "main_path": main_path, "small_reference": small,
-                   "ptxas": ptxas}, f, indent=1)
-    print(json.dumps({"kernels": kernels}))
+                   "gdino_path": gdino_path, "gdino_small_reference":
+                   gdino_small, "ptxas": ptxas}, f, indent=1)
+    print(json.dumps({"kernels": [{k: v for k, v in row.items()
+                                   if k != "shapes"} for row in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

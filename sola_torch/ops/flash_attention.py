@@ -22,7 +22,6 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
-_SOURCES = ("flash_attn_fwd.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (plain integer; chip_smoke.py zeroes
@@ -53,7 +52,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _library():
     from sola_torch.ops.kernel_build import load_library
-    lib = load_library("flash_attn_fwd", _SOURCES)
+    lib = load_library("flash_attn_fwd")
     fn = lib.sola_flash_attn_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int

@@ -3,8 +3,10 @@
 Each library is compiled by ``nvcc`` from sources under ``sola_torch/csrc``
 into ``sola_torch/_build/`` (git-ignored), keyed by a hash of the sources and
 flags, and loaded with ``ctypes``. The sources have a plain C interface, so
-no PyTorch header is compiled and a build takes seconds. A failed build
-raises: no caller falls back to a plain version on a CUDA tensor.
+no PyTorch header is compiled and a build takes seconds. ``build_all``
+starts one ``nvcc`` per library at once, for callers that want every kernel
+ready up front. A failed build raises: no caller falls back to a plain
+version on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# every library of the package: name -> its sources under csrc/
+LIBRARIES = {"flash_attn_fwd": ("flash_attn_fwd.cu",),
+             "ms_deform_attn_fwd": ("ms_deform_attn_fwd.cu",)}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -39,33 +44,65 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load_library(name: str, sources: tuple) -> ctypes.CDLL:
-    """Compile ``sources`` (file names under csrc/) into lib<name>, once per
-    process and once per content hash on disk, and load it."""
+def _so_path(name: str) -> tuple:
+    paths = [os.path.join(CSRC_DIR, s) for s in LIBRARIES[name]]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        with open(p, "rb") as f:
+            digest.update(f.read())
+    return paths, os.path.join(BUILD_DIR,
+                               f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library is built: returns
+    (so_path, tmp_path, Popen, start time) or (so_path, None, None, 0)."""
+    paths, so_path = _so_path(name)
+    if os.path.exists(so_path):
+        return so_path, None, None, 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.tmp.{os.getpid()}"
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return so_path, tmp, proc, time.perf_counter()
+
+
+def _finish(name: str, job) -> ctypes.CDLL:
+    so_path, tmp, proc, t0 = job
+    seconds, log = 0.0, ""
+    if proc is not None:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed building {name} ({proc.returncode}):\n{log}")
+        os.replace(tmp, so_path)
+    lib = ctypes.CDLL(so_path)
+    build_info[name] = {"seconds": seconds, "log": log}
+    _libs[name] = lib
+    return lib
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile library ``name``'s sources (``LIBRARIES``) into lib<name>,
+    once per process and once per content hash on disk, and load it."""
     with _lock:
         if name in _libs:
             return _libs[name]
-        paths = [os.path.join(CSRC_DIR, s) for s in sources]
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
-            with open(p, "rb") as f:
-                digest.update(f.read())
-        so_path = os.path.join(BUILD_DIR,
-                               f"lib{name}_{digest.hexdigest()[:16]}.so")
-        seconds, log = 0.0, ""
-        if not os.path.exists(so_path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so_path}.tmp.{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {name} ({proc.returncode}):\n{log}")
-            os.replace(tmp, so_path)
-        lib = ctypes.CDLL(so_path)
-        build_info[name] = {"seconds": seconds, "log": log}
-        _libs[name] = lib
-        return lib
+        return _finish(name, _start(name))
+
+
+def build_all() -> None:
+    """Build and load every library not loaded yet, one nvcc process per
+    library, all started together."""
+    with _lock:
+        jobs = {name: _start(name) for name in LIBRARIES if name not in _libs}
+        errors = []
+        for name, job in jobs.items():  # waits for every nvcc it started
+            try:
+                _finish(name, job)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))

@@ -283,3 +283,14 @@ def load_sam2_video_predictor(ckpt_path: Optional[str], obj_batch: int = 4,
     from sola_torch.trackgen.sam2.video import SAM2VideoPredictor
     model = build_sam2(ckpt_path, cfg, seed=seed, device=device)
     return SAM2VideoPredictor(model, obj_batch=obj_batch, **kwargs)
+
+
+def load_sam2_image_predictor(ckpt_path: Optional[str],
+                              cfg: Optional[SAM2Config] = None,
+                              device="cuda", seed: int = 0, **kwargs):
+    """The ``prompts_gdino`` box -> mask predictor: SAM2 (hiera-L unless the
+    checkpoint name or ``cfg`` says otherwise) behind the image-predictor
+    surface. Extra keyword arguments go to ``SAM2ImagePredictor``."""
+    from sola_torch.trackgen.sam2.image import SAM2ImagePredictor
+    model = build_sam2(ckpt_path, cfg, seed=seed, device=device)
+    return SAM2ImagePredictor(model, **kwargs)

@@ -57,6 +57,17 @@ def cast_for_compute(model: SAM2Model, compute_dtype) -> SAM2Model:
     return model
 
 
+@torch.no_grad()
+def encode_raw(model: SAM2Model, raw: torch.Tensor, compute_dtype) -> dict:
+    """(n, H, W, 3) uint8 device frames -> encode_image features: linear
+    resize to the model size, back to uint8 (truncating), normalize, and
+    the image in ``compute_dtype``."""
+    s = model.cfg.image_size
+    x = resize_bilinear(raw.permute(0, 3, 1, 2).float(), (s, s))
+    x = normalize_image(x.permute(0, 2, 3, 1).to(torch.uint8))
+    return model.encode_image(x.to(compute_dtype))
+
+
 @dataclasses.dataclass
 class Banks:
     """Memory of one batch of objects; every tensor's axis 0 is the object
@@ -112,15 +123,6 @@ class SAM2VideoPredictor:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def _encode_raw(self, raw: torch.Tensor) -> dict:
-        """(n, H, W, 3) uint8 device frames -> encode_image features:
-        linear resize to the model size, back to uint8, normalize."""
-        s = self.cfg.image_size
-        x = resize_bilinear(raw.permute(0, 3, 1, 2).float(), (s, s))
-        x = normalize_image(x.permute(0, 2, 3, 1).to(torch.uint8))
-        return self.model.encode_image(x.to(self.compute_dtype))
-
-    @torch.no_grad()
     def init_state(self, frames: Optional[Sequence[np.ndarray]],
                    video_path: Optional[str] = None) -> InferenceState:
         """frames: list of (H, W, 3) uint8 arrays, or ``video_path`` to a
@@ -136,7 +138,7 @@ class SAM2VideoPredictor:
             raw = torch.from_numpy(
                 np.stack(frames[start:start + self.encode_chunk], axis=0)
             ).to(self.device)
-            f = self._encode_raw(raw)
+            f = encode_raw(self.model, raw, self.compute_dtype)
             for k in parts:
                 parts[k].append(f[k].to(self.feature_dtype))
             if pos is None:

@@ -84,3 +84,34 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_sam2(size="tiny")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_gdino_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """load_grounding_dino, load_sam2_image_predictor and both CLIs of the
+    GroundingDINO slice refuse to run without CUDA unless asked for the
+    CPU."""
+    import json
+
+    import torch
+
+    from sola_torch.trackgen import prompts_gdino, tokens_gdino
+    from sola_torch.trackgen.gdino.model import (GDINOConfig,
+                                                 load_grounding_dino)
+    from sola_torch.trackgen.sam2.convert import load_sam2_image_predictor
+    from sola_torch.trackgen.sam2.model import SAM2Config
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_grounding_dino(None, cfg=GDINOConfig.tiny_test())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_sam2_image_predictor(None, cfg=SAM2Config.tiny_test(64))
+    data_dir = tmp_path / "datasets" / "mevis" / "valid"
+    data_dir.mkdir(parents=True)
+    (data_dir / "meta_expressions.json").write_text(json.dumps(
+        {"videos": {}}))
+    argv = ["--data_root", str(tmp_path), "--output_root", str(tmp_path),
+            "--data_type", "valid"]
+    for main in (prompts_gdino.main, tokens_gdino.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    assert load_grounding_dino(None, cfg=GDINOConfig.tiny_test(),
+                               device="cpu").device.type == "cpu"
