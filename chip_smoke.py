@@ -40,6 +40,24 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    SAM2 image encode, video encode, propagation).
 7. A small reference for that path: both stages at GDINOConfig.tiny_test
    and SAM2Config.tiny_test on the card (fp32) against the CPU.
+8. The training attention kernels against their plain versions at the
+   selection model's three call sites (obj_attn, motion_attn,
+   object2lang_attn; fp32, full width, the path's masks) and a bf16 check
+   shape: the forward at dropout 0 and 0.1, dQ and dK/dV without and with
+   dropout, masked keys' gradients exactly zero; shows the limits reject
+   three wrong backward results; times each kernel, its plain version, a
+   library yardstick and the bound.
+9. Selection training at full width through ``sola_torch.train.loop.train``
+   (SelectionConfig defaults with the Pallas attention route, a seeded
+   random RoBERTa-large, configs/mevis/default.yaml's train values) on a
+   synthetic corpus at bench.py's train shapes, 2 epochs: checks log.txt,
+   that both checkpoints load strictly and the weights moved, and the
+   three kernels' launches at each call site; warm steps/s, pairs/s, peak
+   memory and one profiled step.
+10. A small reference for training: a tiny config trained 2 epochs on the
+   card and on the CPU; log.txt numbers within a tolerance and equal
+   confusion counts; a third card run with dS planted without its -delta
+   must break that agreement.
 
 The second-to-last line is a JSON object listing every ported kernel; the
 line before it is the card's name and power limit; the last line is
@@ -48,6 +66,8 @@ line before it is the card's name and power limit; the last line is
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -86,6 +106,24 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_instance(library: str, line: str) -> str:
+    """A readable name for the kernel instance a ptxas "Compiling entry
+    function" line names: kernel<type, head dims, dropout>."""
+    import re
+    m = re.search(r"'(_Z\S+)'", line)
+    sym = m.group(1) if m else line
+    kern = next((k for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                             "flash_bwd_dkv_kernel", "ms_deform_fwd_kernel")
+                 if k in sym), library)
+    args = ["bf16" if "bfloat16" in sym else "float"]
+    d = re.search(r"Li(\d+)E", sym)
+    if d:
+        args.append(f"D<={d.group(1)}")
+    if "Lb1E" in sym:
+        args.append("dropout")
+    return f"{kern}<{', '.join(args)}>:"
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -608,11 +646,12 @@ def host_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_forward(fn) -> dict:
+def profile_forward(fn, kernels_of=(("deform", "ms_deform"),)) -> dict:
     """One warm run of ``fn`` under torch.profiler: the device's busy time
     (the union of its kernels' intervals) against the host's wall time of
-    the run, and the deformable kernel's share of the busy time. None where
-    the profiler records no device kernel."""
+    the run, and for each (label, name part) of ``kernels_of`` the time of
+    the kernels whose name holds that part and its share of the busy time.
+    None where the profiler records no device kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -627,15 +666,20 @@ def profile_forward(fn) -> dict:
                      if e.device_type == torch.autograd.DeviceType.CUDA)
     if not kernels:
         return {"wall_ms": wall_us / 1e3, "busy_ms": None,
-                "idle_share": None, "deform_ms": None, "kernels": 0}
+                "idle_share": None, "kernels": 0,
+                **{f"{label}_ms": None for label, _ in kernels_of}}
     busy, end = 0.0, -1.0
     for s, e, _ in kernels:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-    deform = sum(e - s for s, e, n in kernels if "ms_deform" in n)
-    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1.0 - busy / wall_us, "deform_ms": deform / 1e3,
-            "deform_share_of_busy": deform / busy, "kernels": len(kernels)}
+    out = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+           "idle_share": 1.0 - busy / wall_us, "kernels": len(kernels)}
+    for label, part in kernels_of:
+        t = sum(e - s for s, e, n in kernels if part in n)
+        out[f"{label}_ms"] = t / 1e3
+        out[f"{label}_share_of_busy"] = t / busy
+        out[f"{label}_launches"] = sum(part in n for _, _, n in kernels)
+    return out
 
 
 def gdino_breakdown(grounding, image_pred, frame) -> dict:
@@ -1226,6 +1270,487 @@ def run_small_reference(fa) -> dict:
             "encoder_drift": drift}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the training attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# the selection model at full width (SelectionConfig defaults): 1024-d, 8
+# heads of 128; batch 8 of 64 track slots (40 valid) x 8 frames after the
+# motion encoder; 96 padded words + 32 negatives
+SEL_B, SEL_N, SEL_T, SEL_HEADS, SEL_D, SEL_WORDS, SEL_NEG = (8, 64, 8, 8,
+                                                             128, 96, 32)
+SEL_RATE, SEL_SEED = 0.1, 0x2545F491
+
+
+def selection_attention_cases(gen):
+    """(name, site, dtype, b, lq, lk, mask) of the three call sites of an
+    AlignmentLayer, with the masks the path makes: track slots 40 of 64
+    valid (obj_attn, per frame), frame lengths of 5 to 8 (motion_attn, per
+    track), and 6 to 20 real words of the 96 plus the 32 negatives
+    (object2lang_attn); and object2lang_attn in bf16 as a check shape."""
+    tracks = torch.zeros(SEL_B, SEL_N, dtype=torch.bool)
+    tracks[:, :40] = True
+    frames = (torch.arange(SEL_T)[None]
+              < torch.randint(5, SEL_T + 1, (SEL_B,), generator=gen)[:, None])
+    words = (torch.arange(SEL_WORDS)[None]
+             < torch.randint(6, 21, (SEL_B,), generator=gen)[:, None])
+    lang = torch.cat([words, torch.ones(SEL_B, SEL_NEG, dtype=torch.bool)],
+                     dim=1)
+    fp32 = torch.float32
+    return [
+        ("obj_attn", "obj_attn", fp32, SEL_B * SEL_T, SEL_N, SEL_N,
+         tracks.repeat_interleave(SEL_T, dim=0).cuda()),
+        ("motion_attn", "motion_attn", fp32, SEL_B * SEL_N, SEL_T, SEL_T,
+         frames.repeat_interleave(SEL_N, dim=0).cuda()),
+        ("object2lang_attn", "object2lang_attn", fp32, SEL_B,
+         SEL_N * SEL_T, SEL_WORDS + SEL_NEG, lang.cuda()),
+        ("object2lang_attn_bf16", "check", torch.bfloat16, SEL_B,
+         SEL_N * SEL_T, SEL_WORDS + SEL_NEG, lang.cuda())]
+
+
+def grad_limits_fail(grads, refs, dtype) -> list:
+    """The gradients among (dq, dk, dv) that break the limits against the
+    fp32 references: [(name, max err, limit, rms err, limit)]."""
+    bad = []
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        err, tol, rms, rms_tol = out_errors(g, r.float(), dtype)
+        if not (err <= tol and rms <= rms_tol
+                and torch.isfinite(g.float()).all()):
+            bad.append((name, err, tol, rms, rms_tol))
+    return bad
+
+
+def check_flash_training_kernels(fa, gen) -> dict:
+    """Forward at rates 0 and 0.1, and dQ and dK/dV without and with
+    dropout, against the plain versions at the selection shapes; the limits
+    must reject three wrong backward results (the mask of seed + 1, dS
+    without -delta, dV from the undropped P). Times each kernel, its plain
+    version, its bound and a library yardstick (SDPA forward; SDPA's
+    backward = forward + backward - forward, for dQ and dK/dV together)."""
+    import torch.nn.functional as F
+    rows = []
+    for name, site, dtype, b, lq, lk, mask in selection_attention_cases(gen):
+        h, d = SEL_HEADS, SEL_D
+        q, k, v, do = (torch.randn(b, h, n, d, generator=gen).cuda().to(dtype)
+                       for n in (lq, lk, lk, lq))
+        row = {"shape": name, "site": site, "dtype": str(dtype), "b": b,
+               "h": h, "lq": lq, "lk": lk, "d": d,
+               "valid_keys": int(mask.sum())}
+        for rate in (0.0, SEL_RATE):
+            seed = SEL_SEED if rate else None
+            tag = "drop" if rate else "nodrop"
+            out, lse = fa._launch(q, k, v, mask, rate, seed)
+            delta = fa.bwd_delta(out, do)
+            args = (q, k, v, mask, do, lse, delta, rate, seed)
+            dq, = fa._launch_bwd_kernel("dq", *args)
+            dk, dv = fa._launch_bwd_kernel("dkv", *args)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.attention_reference(q, k, v, mask, rate, seed)
+            err, tol, rms, rms_tol = out_errors(out, ref.float(), dtype)
+            lse_err = (lse - ref_lse).abs().max().item()
+            if not (err <= tol and rms <= rms_tol and lse_err <= LSE_ATOL
+                    and torch.isfinite(out.float()).all()):
+                raise AssertionError(
+                    f"{name} rate {rate}: forward disagrees with its plain "
+                    f"version: max {err} (tol {tol}), rms {rms} (tol "
+                    f"{rms_tol}), lse {lse_err}")
+            refs = fa.attention_bwd_reference(q, k, v, mask, out, lse, do,
+                                              rate, seed)
+            bad = grad_limits_fail((dq, dk, dv), refs, dtype)
+            if bad:
+                raise AssertionError(f"{name} rate {rate}: backward "
+                                     f"disagrees with its plain version: "
+                                     f"{bad}")
+            # masked keys: exactly zero dK and dV
+            kmask = ~mask[:, None, :, None].expand(b, h, lk, d)
+            if kmask.any() and (dk.float()[kmask].abs().max() != 0
+                                or dv.float()[kmask].abs().max() != 0):
+                raise AssertionError(f"{name}: masked keys get a gradient")
+            row[f"fwd_{tag}"] = {"max_abs_err": err, "max_abs_tol": tol,
+                                 "rms_err": rms, "rms_tol": rms_tol,
+                                 "lse_max_abs_err": lse_err}
+            for gname, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                e, t, r_err, r_tol = out_errors(g, r.float(), dtype)
+                row[f"{gname}_{tag}"] = {"max_abs_err": e, "max_abs_tol": t,
+                                         "rms_err": r_err, "rms_tol": r_tol}
+        # three wrong backward results the limits must reject (dropout on)
+        wrong = {
+            "mask_of_seed_plus_1": fa.attention_bwd_reference(
+                q, k, v, mask, out, lse, do, rate, seed + 1),
+            "ds_without_delta": fa.attention_bwd_reference(
+                q, k, v, mask, torch.zeros_like(out), lse, do, rate, seed),
+            "dv_from_undropped_p": refs[:2] + fa.attention_bwd_reference(
+                q, k, v, mask, out, lse, do)[2:]}
+        row["wrong_rejected_by"] = {}
+        for what, grads in wrong.items():
+            caught = grad_limits_fail(grads, refs, dtype)
+            if not caught:
+                raise AssertionError(f"{name}: the limits accept a wrong "
+                                     f"backward ({what})")
+            row["wrong_rejected_by"][what] = [c[0] for c in caught]
+        # times at the training forward's rate
+        attn_mask = mask[:, None, None, :]
+        fwd_ms = cuda_ms(lambda: fa._launch(q, k, v, mask, rate, seed), 20)
+        fwd_nodrop_ms = cuda_ms(lambda: fa._launch(q, k, v, mask), 20)
+        dq_ms = cuda_ms(lambda: fa._launch_bwd_kernel("dq", *args), 20)
+        dkv_ms = cuda_ms(lambda: fa._launch_bwd_kernel("dkv", *args), 20)
+        plain_fwd_ms = cuda_ms(lambda: fa.attention_reference(
+            q, k, v, mask, rate, seed), 5)
+        plain_bwd_ms = cuda_ms(lambda: fa.attention_bwd_reference(
+            q, k, v, mask, out, lse, do, rate, seed), 5)
+        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, dropout_p=rate), 20)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=attn_mask,
+                dropout_p=rate).backward(do)
+
+        sdpa_bwd_ms = max(cuda_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms, 0.0)
+        flops_fwd, _ = attention_work(b, h, lq, lk, d, mask,
+                                      q.element_size())
+        per = flops_fwd / 4.0  # one FLOP-unit per (bh, q, valid k, d)
+        item = q.element_size()
+        qo_bytes = b * h * lq * d * item   # q, o, do, dq: one each
+        kv_bytes = b * h * lk * d * item   # k, v, dk, dv: one each
+        row_bytes = 4 * b * h * lq         # lse or delta, fp32
+        mask_bytes = b * lk
+        work = {  # (FLOPs, bytes): each input read once, each output
+            # written once
+            "fwd": (4 * per, 2 * qo_bytes + 2 * kv_bytes + row_bytes
+                    + mask_bytes),
+            "dq": (6 * per, 3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes
+                   + mask_bytes),
+            "dkv": (8 * per, 2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes
+                    + mask_bytes)}
+        row["fwd_nodrop_ms"] = fwd_nodrop_ms  # the validation pass's
+        times = {"fwd": (fwd_ms, plain_fwd_ms, sdpa_fwd_ms),
+                 "dq": (dq_ms, plain_bwd_ms, sdpa_bwd_ms),
+                 "dkv": (dkv_ms, plain_bwd_ms, sdpa_bwd_ms)}
+        for kern, (flops, nbytes) in work.items():
+            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            ms, plain, lib = times[kern]
+            row[kern] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": max(t_ops, t_bytes),
+                         "bound_by": ("operations" if t_ops >= t_bytes
+                                      else "bytes"),
+                         "gflops": flops / ms / 1e6}
+        rows.append(row)
+        drop = row["fwd_drop"]
+        log(f"  {name:>21} {str(dtype)[6:]} bh={b}x{h} lq={lq} lk={lk} "
+            f"d={d}: fwd max err {drop['max_abs_err']:.3g} (tol "
+            f"{drop['max_abs_tol']:.3g}); dq/dk/dv max err "
+            + "/".join(f"{row[g + '_drop']['max_abs_err']:.3g}"
+                       for g in ("dq", "dk", "dv"))
+            + " (tol " + "/".join(f"{row[g + '_drop']['max_abs_tol']:.3g}"
+                                  for g in ("dq", "dk", "dv"))
+            + f"); wrong results rejected by {row['wrong_rejected_by']}")
+        log(f"    fwd at rate 0: kernel {fwd_nodrop_ms:.4f} ms")
+        for kern in ("fwd", "dq", "dkv"):
+            r = row[kern]
+            log(f"    {kern:>3} at rate {rate}: kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f}"
+                f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{r['gflops']:.1f} GFLOP/s")
+        del (q, k, v, do, out, lse, delta, args, dq, dk, dv, refs, wrong,
+             qg, kg, vg)
+    torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: selection training through the port's train entry
+# ---------------------------------------------------------------------------
+
+ATTN_SITES = ("obj_attn", "motion_attn", "object2lang_attn")
+# bench.py's train shapes: 16 videos x 4 expressions, 40 tracks (4 objects +
+# 36 distractors, bucket 64), 64 frames, batch 8; 4 validation videos
+TRAIN_VIDEOS, VALID_VIDEOS, OBJECTS, DISTRACTORS, FRAMES, BATCH = (
+    16, 4, 4, 36, 64, 8)
+
+
+class TrainSiteCounter:
+    """The three flash kernels' launches by call site while a model
+    trains: forward launches between a site module's forward pre-hook and
+    hook, dQ and dK/dV launches between its backward pre-hook and hook. The
+    wrappers alone count; the hooks only read their counters."""
+
+    def __init__(self, fa):
+        self.fa = fa
+        self.counts = {s: {"fwd": 0, "dq": 0, "dkv": 0} for s in ATTN_SITES}
+        self._fwd, self._bwd = [], []
+
+    def watch(self, model) -> None:
+        fa = self.fa
+        for layer in model.object_lang_align_layers:
+            for site in ATTN_SITES:
+                m = getattr(layer, site)
+                m.register_forward_pre_hook(
+                    lambda *_: self._fwd.append(fa.launches))
+                m.register_forward_hook(lambda *_, s=site: self._add_fwd(s))
+                m.register_full_backward_pre_hook(
+                    lambda *_: self._bwd.append((fa.bwd_dq_launches,
+                                                 fa.bwd_dkv_launches)))
+                m.register_full_backward_hook(
+                    lambda *_, s=site: self._add_bwd(s))
+
+    def _add_fwd(self, site: str) -> None:
+        self.counts[site]["fwd"] += self.fa.launches - self._fwd.pop()
+
+    def _add_bwd(self, site: str) -> None:
+        dq, dkv = self._bwd.pop()
+        self.counts[site]["dq"] += self.fa.bwd_dq_launches - dq
+        self.counts[site]["dkv"] += self.fa.bwd_dkv_launches - dkv
+
+
+def selection_corpus(root: str, n_train: int, n_valid: int, n_frames: int,
+                     n_objects: int, n_distractors: int, batch: int) -> dict:
+    """A synthetic MeViS-layout corpus (train and valid_u splits) from the
+    port's generator; returns the config's dataset section."""
+    from sola_torch.data import synthetic
+    for split, n, seed in (("train", n_train, 0), ("valid_u", n_valid, 1)):
+        gen = synthetic.generate(root, n_videos=n, n_frames=n_frames,
+                                 n_objects=n_objects,
+                                 n_distractors=n_distractors,
+                                 data_type=split, seed=seed)
+    dataset = {"data_root": gen["data_root"], "track_root": gen["track_root"],
+               "num_workers": 4}
+    for split, data_type in (("train", "train"), ("valid", "valid_u")):
+        dataset[split] = {"data_name": "mevis", "data_type": data_type,
+                          "sam2_output_dirs": "grid_tracks",
+                          "batch_size": batch}
+    return dataset
+
+
+def parse_train_log(path: str) -> tuple:
+    """(floats, TP/FP/FN/TN counts, epochs) of a log.txt."""
+    import re
+    text = open(path).read()
+    return ([float(x) for x in re.findall(r"-?\d+\.\d+|nan|inf", text)],
+            [int(x) for x in re.findall(r"(?:TP|FP|FN|TN): (\d+)", text)],
+            re.findall(r"^EPOCH (\d+)$", text, re.M))
+
+
+def run_selection_training(fa) -> dict:
+    """Phase 9: selection training at full width through
+    ``sola_torch.train.loop.train`` with configs/mevis/default.yaml's
+    values, the Pallas attention route and a random RoBERTa-large."""
+    from sola_torch import config as config_lib
+    from sola_torch.data.dataset import get_loader_dict
+    from sola_torch.models.selection import SelectionConfig, SelectionModel
+    from sola_torch.models.text import CachingTextEncoder, build_text_encoder
+    from sola_torch.train import loop
+    from sola_torch.train import state as state_lib
+    root = os.path.join(OUT_DIR, "selection")
+    t0 = time.perf_counter()
+    dataset = selection_corpus(os.path.join(root, "data"), TRAIN_VIDEOS,
+                               VALID_VIDEOS, FRAMES, OBJECTS, DISTRACTORS,
+                               BATCH)
+    corpus_s = time.perf_counter() - t0
+    configs = config_lib.load_config("mevis/default", overrides={
+        "model.use_pallas_attention": True,
+        "model.text_encoder": "roberta_random", "train.n_epochs": 2,
+        "results.output_dir": os.path.join(root, "TRAIN")})
+    configs["dataset"] = dataset
+    cfg = SelectionConfig.from_dict(configs["model"])
+    t0 = time.perf_counter()
+    text = CachingTextEncoder(build_text_encoder(configs["model"], "cuda"))
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t0
+    log(f"  corpus {TRAIN_VIDEOS}+{VALID_VIDEOS} videos in {corpus_s:.1f} s;"
+        f" text encoder: RoBERTa-large {text.inner.cfg.num_layers} x "
+        f"{text.inner.cfg.hidden_size} (seeded random, frozen) in "
+        f"{text_s:.1f} s; model {cfg}")
+
+    sites = TrainSiteCounter(fa)
+    initial = {}
+    build_model = loop.build_model
+
+    def build_and_watch(*args, **kwargs):  # the hooks only read counters
+        model = build_model(*args, **kwargs)
+        initial.update({k: v.detach().clone()
+                        for k, v in model.state_dict().items()})
+        sites.watch(model)
+        return model
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    loop.build_model = build_and_watch
+    try:
+        t0 = time.perf_counter()
+        model = loop.train(configs, text_encoder=text, log_fn=log,
+                           device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        loop.build_model = build_model
+    launches = {"flash_attn_fwd": fa.launches,
+                "flash_attn_bwd_dq": fa.bwd_dq_launches,
+                "flash_attn_bwd_dkv": fa.bwd_dkv_launches}  # read right after
+    by_site = copy.deepcopy(sites.counts)  # the timed steps below add on
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    out_dir = os.path.join(root, "TRAIN", configs["exp_name"], "mevis")
+    floats, counts, epochs = parse_train_log(os.path.join(out_dir, "log.txt"))
+    if (epochs != ["001", "002"] or len(counts) != 8
+            or not np.isfinite(floats).all()):
+        raise AssertionError(f"log.txt: epochs {epochs}, counts {counts}, "
+                             f"numbers {floats}")
+    for epoch in (1, 2):
+        fresh = SelectionModel(cfg)
+        fresh.load_state_dict(torch.load(os.path.join(
+            out_dir, f"epoch_{epoch}.pth"), weights_only=True), strict=True)
+    final = model.state_dict()
+    still = [k for k, _ in model.named_parameters()
+             if torch.equal(final[k], initial[k])]
+    if still:
+        raise AssertionError(f"parameters that did not move: {still}")
+    steps = (TRAIN_VIDEOS * OBJECTS // BATCH) * 2
+    valid_batches = (VALID_VIDEOS * OBJECTS // BATCH) * 2
+    want = {"fwd": cfg.n_layers * (steps + valid_batches),
+            "dq": cfg.n_layers * steps, "dkv": cfg.n_layers * steps}
+    if (any(by_site[s] != want for s in ATTN_SITES)
+            or launches["flash_attn_fwd"] != 3 * want["fwd"]
+            or launches["flash_attn_bwd_dq"] != 3 * want["dq"]
+            or launches["flash_attn_bwd_dkv"] != 3 * want["dkv"]):
+        raise AssertionError(f"kernel launches by site {by_site} "
+                             f"(want {want} each), totals {launches}")
+
+    # warm steps on one batch of the path's shape, then one profiled step
+    raw = next(iter(get_loader_dict(configs["dataset"])["train"]))
+    batch = loop.prepare_batch(raw, text, configs["train"], "cuda")
+    optimizer = state_lib.make_optimizer(model.parameters(), lr=5e-6)
+    gen = torch.Generator().manual_seed(0)
+    step = lambda: loop.train_step(model, optimizer, batch,  # noqa: E731
+                                   configs["train"], gen)
+    step_ms = host_ms(step, iters=5)
+    prof = profile_forward(step, kernels_of=(
+        ("flash_fwd", "flash_fwd_kernel"),
+        ("flash_bwd_dq", "flash_bwd_dq_kernel"),
+        ("flash_bwd_dkv", "flash_bwd_dkv_kernel")))
+    row = {"config": dataclasses.asdict(cfg), "corpus_s": corpus_s,
+           "text_encoder_s": text_s, "train_s": train_s, "steps": steps,
+           "launches": launches, "launches_by_site": by_site,
+           "peak_memory_gb": peak_gb, "warm_step_ms": step_ms,
+           "steps_per_s": 1e3 / step_ms,
+           "pairs_per_s": BATCH * 1e3 / step_ms, "log": floats,
+           "confusion": counts, "profile": prof}
+    log(f"  train(): 2 epochs, {steps} steps + {valid_batches} validation "
+        f"batches in {train_s:.2f} s (data loading, text encodes and "
+        f"checkpoints included); log {floats[:4]}..., TP/FP/FN/TN "
+        f"{counts[-4:]}; launches {launches}, by site {by_site}; "
+        f"peak memory {peak_gb:.2f} GB; card {smi_line()}")
+    log(f"  warm train step (batch {BATCH}, 64 track slots x 64 frames): "
+        f"{step_ms:.2f} ms = {row['steps_per_s']:.2f} steps/s = "
+        f"{row['pairs_per_s']:.2f} (video, expression) pairs/s; one "
+        "profiled step: " + (
+            "not measured (the profiler recorded no device kernel)"
+            if prof["busy_ms"] is None else
+            f"wall {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}),"
+            f" {prof['kernels']} kernels; flash fwd "
+            f"{prof['flash_fwd_ms']:.3f} ms ({prof['flash_fwd_share_of_busy']:.3f}),"
+            f" dq {prof['flash_bwd_dq_ms']:.3f} ms "
+            f"({prof['flash_bwd_dq_share_of_busy']:.3f}), dkv "
+            f"{prof['flash_bwd_dkv_ms']:.3f} ms "
+            f"({prof['flash_bwd_dkv_share_of_busy']:.3f}) of busy"))
+    del model, text, optimizer, batch
+    torch.cuda.empty_cache()
+    drop_bulk(root)
+    return row
+
+
+def drop_bulk(root: str) -> None:
+    """Remove a training workspace's corpus and checkpoints once checked
+    (hundreds of MB), keeping its log.txt."""
+    shutil.rmtree(os.path.join(root, "data"), ignore_errors=True)
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".pth"):
+                os.remove(os.path.join(dirpath, f))
+
+
+# card against CPU, fp32 with TF32 off: the 4-decimal log numbers of epoch 1
+# agree to a last digit; AdamW turns summation-order differences into up to
+# 5e-4 by epoch 2 on an H100. A backward kernel fault (dS without -delta)
+# moves them by ~3, which this limit must still reject
+SMALL_TRAIN_ATOL = 2e-3
+
+
+def run_selection_small_reference(fa) -> dict:
+    """Phase 10: a tiny selection config (lang 64, 1 layer, no dropout,
+    Pallas route) trained 2 epochs on the card and on the CPU from the same
+    seeded weights and hash table: the log.txt numbers within
+    SMALL_TRAIN_ATOL and equal TP/FP/FN/TN. A third run on the card with a
+    planted fault in the backward kernels' input (delta = 0, so dS lacks
+    its -delta) must break that agreement."""
+    from sola_torch.models.text import HashTextEncoder
+    from sola_torch.train.loop import train
+    root = os.path.join(OUT_DIR, "selection_small")
+    dataset = selection_corpus(os.path.join(root, "data"), 3, 2, 16, 2, 2, 2)
+    model = {"object_token_dim": 256, "lang_token_dim": 64, "n_layers": 1,
+             "n_negative": 4, "dropout_p": 0.0, "attn_dropout_p": 0.0,
+             "n_groups": 8, "n_groups_module": 8,
+             "use_pallas_attention": True}
+    honest_delta = fa.bwd_delta
+    runs = {}
+    for name, device in (("cuda", "cuda"), ("cpu", "cpu"),
+                         ("cuda_ds_without_delta", "cuda")):
+        configs = {"exp_name": "small", "model": model,
+                   "train": {"n_epochs": 2, "pred_threshold": 0.5,
+                             "temperature": 0.07, "alignment_weight": 0.3,
+                             "lr": 1e-4, "lr_factor": 0.5, "lr_patience": 0,
+                             "grad_clip_norm": 1.0, "positive_metric": "iou",
+                             "positive_threshold": 0.7,
+                             "positive_weight": 1.5},
+                   "dataset": copy.deepcopy(dataset),
+                   "results": {"output_dir": os.path.join(root, name)}}
+        before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        if name == "cuda_ds_without_delta":
+            fa.bwd_delta = lambda out, do: torch.zeros_like(
+                honest_delta(out, do))
+        try:
+            train(configs, text_encoder=HashTextEncoder(
+                hidden_size=64, vocab_size=128, device=device),
+                log_fn=lambda *a: None, device=device)
+            _sync(device)
+        finally:
+            fa.bwd_delta = honest_delta
+        runs[name] = parse_train_log(os.path.join(
+            root, name, "small", "mevis", "log.txt")) + (
+            tuple(a - b for a, b in zip((fa.launches, fa.bwd_dq_launches,
+                                         fa.bwd_dkv_launches), before)),)
+
+    def log_err(a, b):
+        return (float(np.abs(np.subtract(a[0], b[0])).max())
+                if len(a[0]) == len(b[0]) else float("inf"))
+
+    card, cpu, fault = (runs["cuda"], runs["cpu"],
+                        runs["cuda_ds_without_delta"])
+    if min(card[3]) == 0 or max(cpu[3]) != 0 or min(fault[3]) == 0:
+        raise AssertionError(f"small training launches (fwd, dq, dkv): card "
+                             f"{card[3]}, cpu {cpu[3]}, fault {fault[3]}")
+    err, fault_err = log_err(card, cpu), log_err(fault, cpu)
+    if card[1] != cpu[1] or card[2] != cpu[2] or not err <= SMALL_TRAIN_ATOL:
+        raise AssertionError(f"card vs cpu training: log numbers differ by "
+                             f"{err} (tol {SMALL_TRAIN_ATOL}), counts "
+                             f"{card[1]} vs {cpu[1]}")
+    if fault_err <= SMALL_TRAIN_ATOL and fault[1] == cpu[1]:
+        raise AssertionError(f"the limit accepts training with dS without "
+                             f"-delta: log numbers within {fault_err}")
+    drop_bulk(root)
+    log(f"  tiny training on the card vs the CPU (2 epochs, Pallas route, "
+        f"launches fwd/dq/dkv {card[3]}): log numbers within {err:.3g} (tol "
+        f"{SMALL_TRAIN_ATOL}), TP/FP/FN/TN equal {card[1]}; with dS without "
+        f"-delta planted the log differs by {fault_err:.4g} (rejected)")
+    return {"max_abs_log_err": err, "tol": SMALL_TRAIN_ATOL,
+            "confusion": card[1], "card_launches": card[3], "log": card[0],
+            "ds_without_delta_max_abs_log_err": fault_err}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
@@ -1252,8 +1777,7 @@ def main() -> None:
     for name, info in kernel_build.build_info.items():
         for ln in info["log"].splitlines():
             if "Compiling entry function" in ln:  # names the instance below
-                ptxas.append(f"{name}<" + (
-                    "bf16" if "bfloat16" in ln else "float") + ">:")
+                ptxas.append(ptxas_instance(name, ln))
             elif "registers" in ln or "spill" in ln:
                 ptxas.append(ln.strip())
     for ln in ptxas:
@@ -1275,13 +1799,25 @@ def main() -> None:
     gdino_path = run_gdino_path(fa, di)
     log("phase 7: GroundingDINO small reference")
     gdino_small = run_gdino_small_reference(fa, di)
+    log("phase 8: training attention kernels (forward with dropout, dQ, "
+        "dK/dV) vs their plain versions")
+    training_kernels = check_flash_training_kernels(fa, gen)
+    log("phase 9: selection training at full width (Pallas route, "
+        "RoBERTa-large)")
+    training = run_selection_training(fa)
+    log("phase 10: selection training small reference")
+    training_small = run_selection_small_reference(fa)
 
     head = kernel["rows"][0]  # memory cross-attention: most of the time
     # the main path's shape: 3 expressions padded to 4, fp32 (CLI default)
     dhead = next(r for r in deform["rows"] if r["shape"] == "encoder_e4")
+    # the training path's largest site in fp32: object2lang_attn
+    thead = next(r for r in training_kernels["rows"]
+                 if r["shape"] == "object2lang_attn")
     by_path = {
         "flash_attn_fwd": {"tokens_grid": main_path["launches"],
-                           "gdino": gdino_path["launches"]["flash_attn_fwd"]},
+                           "gdino": gdino_path["launches"]["flash_attn_fwd"],
+                           "train": training["launches"]["flash_attn_fwd"]},
         "ms_deform_attn_fwd": {
             "tokens_grid": main_path["deform_launches"],
             "gdino": gdino_path["launches"]["ms_deform_attn_fwd"]}}
@@ -1290,12 +1826,37 @@ def main() -> None:
         "source": "sola_torch/csrc/flash_attn_fwd.cu",
         "replaces": "sola_tpu/ops/flash_attention.py:64",
         "launches": sum(by_path["flash_attn_fwd"].values()),
-        "max_abs_err": max(r["max_abs_err"] for r in kernel["rows"]),
+        "max_abs_err": max(
+            [r["max_abs_err"] for r in kernel["rows"]]
+            + [r[f"fwd_{t}"]["max_abs_err"] for r in training_kernels["rows"]
+               for t in ("nodrop", "drop")]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "at": head["shape"], "launches_by_path": by_path["flash_attn_fwd"],
-        "shapes": kernel["rows"]}, {
+        "shapes": kernel["rows"],
+        "training_shapes": [{"shape": r["shape"], **r["fwd"],
+                             "ms_without_dropout": r["fwd_nodrop_ms"]}
+                            for r in training_kernels["rows"]]}]
+    for kern, line in (("dq", 117), ("dkv", 159)):
+        grads = ("dq",) if kern == "dq" else ("dk", "dv")
+        kernels.append({
+            "name": f"flash_attn_bwd_{kern}", "route": "cuda",
+            "source": "sola_torch/csrc/flash_attn_bwd.cu",
+            "replaces": f"sola_tpu/ops/flash_attention.py:{line}",
+            "launches": training["launches"][f"flash_attn_bwd_{kern}"],
+            "max_abs_err": max(r[f"{g}_{t}"]["max_abs_err"]
+                               for r in training_kernels["rows"]
+                               for g in grads for t in ("nodrop", "drop")),
+            **{k: thead[kern][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+            "at": f"{thead['shape']}, dropout {SEL_RATE}",
+            "plain_and_library_cover": "dQ, dK and dV together",
+            "launches_by_path": {
+                "train": training["launches"][f"flash_attn_bwd_{kern}"]},
+            "shapes": [{"shape": r["shape"], **r[kern]}
+                       for r in training_kernels["rows"]]})
+    kernels.append({
         "name": "ms_deform_attn_fwd", "route": "cuda",
         "source": "sola_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "sola_tpu/ops/deformable_interp.py:42",
@@ -1306,16 +1867,20 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes it
         "at": dhead["shape"],
         "launches_by_path": by_path["ms_deform_attn_fwd"],
-        "shapes": deform["rows"]}]
+        "shapes": deform["rows"]})
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"card": smi, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "kernels": kernels,
                    "main_path": main_path, "small_reference": small,
                    "gdino_path": gdino_path, "gdino_small_reference":
-                   gdino_small, "ptxas": ptxas}, f, indent=1)
-    print(json.dumps({"kernels": [{k: v for k, v in row.items()
-                                   if k != "shapes"} for row in kernels]}))
+                   gdino_small, "training_kernels": training_kernels,
+                   "selection_training": training,
+                   "selection_small_reference": training_small,
+                   "ptxas": ptxas}, f, indent=1)
+    print(json.dumps({"kernels": [
+        {k: v for k, v in row.items()
+         if k not in ("shapes", "training_shapes")} for row in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,15 @@
 // with fp32 running max, running sum and accumulator, and P cast to V's
 // type before the PV product, as the Pallas kernel does.
 //
+// Dropout (training): with inv_keep > 0 the P that enters the PV product is
+// multiplied by keep x inv_keep, where keep is _keep_mask's counter hash of
+// (seed, batch*head, global query, global key) below keep_thresh; the row
+// sum l stays undropped (softmax first, then dropout on the probabilities,
+// torch SDPA's placement). The hash uses global indices, so the mask does
+// not depend on this kernel's tiles and the two backward kernels
+// (flash_attn_bwd.cu) regenerate it exactly. inv_keep = 0 selects the
+// instance without dropout, which is the kernel as it was before dropout.
+//
 // Masking: the key mask arrives as (B, Lk) bytes shared by the H heads of a
 // batch entry. A masked key scores -1e30 (not -inf), so a fully masked row
 // returns the mean of V over the real keys, the convention of the dense
@@ -48,9 +57,13 @@
 
 #include <type_traits>
 
+#include "dropout_hash.cuh"
+
 using namespace nvcuda;
 
 namespace {
+
+using sola_dropout::Dropout;
 
 using bf16 = __nv_bfloat16;
 
@@ -213,12 +226,15 @@ __device__ inline void warp_scores(const T* sQ, const T* sK, float* sS,
 
 // Online-softmax update of this warp's 16 rows over one key tile: writes
 // P = exp(s - m_new) (as T, P's home depends on the path), the rescale
-// factor alpha, and the new running max and sum.
-template <typename T>
+// factor alpha, and the new running max and sum. With kDrop the stored P is
+// the dropped one (x keep x inv_keep at global row q0 + r, key k0 + c); the
+// sum is not.
+template <typename T, bool kDrop>
 __device__ inline void warp_softmax(float* sS, T* sP, int ldp, float* sM,
                                     float* sL, float* sA,
                                     const unsigned char* sMask, int kv,
-                                    float scale, const Layout& L, int warp,
+                                    float scale, const Dropout& drop, int q0,
+                                    int k0, const Layout& L, int warp,
                                     int lane) {
   constexpr int BK = Tile<T>::BK;
   constexpr int PER_LANE = BK / 32;
@@ -250,7 +266,11 @@ __device__ inline void warp_softmax(float* sS, T* sP, int ldp, float* sM,
       const int c = lane + 32 * j;
       const float p = expf(s[j] - m_new);
       sum += p;
-      sP[r * ldp + c] = from_float<T>(p);
+      if constexpr (kDrop) {
+        sP[r * ldp + c] = from_float<T>(p * drop.factor(q0 + r, k0 + c));
+      } else {
+        sP[r * ldp + c] = from_float<T>(p);
+      }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -320,12 +340,13 @@ __device__ inline void warp_pv(const T* sP, int ldp, const T* sV, float* sO,
   __syncwarp();
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const unsigned char* __restrict__ mask,
                  T* __restrict__ out, float* __restrict__ lse, int H, int Lq,
-                 int Lk, int D, int dp, float scale) {
+                 int Lk, int D, int dp, float scale, uint32_t seed,
+                 uint32_t keep_thresh, float inv_keep) {
   constexpr int BK = Tile<T>::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout<T>(dp);
@@ -357,6 +378,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + static_cast<size_t>(bh) * Lk * D;
   const unsigned char* mb =
       mask ? mask + static_cast<size_t>(bh / H) * Lk : nullptr;
+  Dropout drop{0u, keep_thresh, inv_keep};
+  if constexpr (kDrop) drop.for_head(seed, bh);
 
   load_tile(sQ, L.ldt, qb, min(kBQ, Lq - q0), kBQ, D, dp);
   for (int i = threadIdx.x; i < kBQ * L.ldo; i += kThreads) sO[i] = 0.0f;
@@ -390,7 +413,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     warp_scores<T>(sQ, sK, sS, L, warp, lane);
     __syncwarp();
-    warp_softmax<T>(sS, sP, ldp, sM, sL, sA, sMask, kv, scale, L, warp, lane);
+    warp_softmax<T, kDrop>(sS, sP, ldp, sM, sL, sA, sMask, kv, scale, drop,
+                           q0, k0, L, warp, lane);
     warp_pv<T>(sP, ldp, sV, sO, sA, L, warp, lane);
     __syncthreads();  // every warp is done with sK / sV before the next load
   }
@@ -413,22 +437,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v,
-           const unsigned char* mask, void* out, float* lse, int BH, int H,
-           int Lq, int Lk, int D, float scale, cudaStream_t stream) {
+template <typename T, bool kDrop>
+int launch_instance(const void* q, const void* k, const void* v,
+                    const unsigned char* mask, void* out, float* lse, int BH,
+                    int H, int Lq, int Lk, int D, float scale, uint32_t seed,
+                    uint32_t keep_thresh, float inv_keep,
+                    cudaStream_t stream) {
   const int dp = (D + 15) / 16 * 16;
   const Layout L = make_layout<T>(dp);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<T><<<grid, kThreads, L.total, stream>>>(
+  flash_fwd_kernel<T, kDrop><<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), lse, H, Lq, Lk, D,
-      dp, scale);
+      dp, scale, seed, keep_thresh, inv_keep);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v,
+           const unsigned char* mask, void* out, float* lse, int BH, int H,
+           int Lq, int Lk, int D, float scale, uint32_t seed,
+           uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
+  if (inv_keep > 0.0f) {
+    return launch_instance<T, true>(q, k, v, mask, out, lse, BH, H, Lq, Lk,
+                                    D, scale, seed, keep_thresh, inv_keep,
+                                    stream);
+  }
+  return launch_instance<T, false>(q, k, v, mask, out, lse, BH, H, Lq, Lk, D,
+                                   scale, seed, keep_thresh, inv_keep, stream);
 }
 
 }  // namespace
@@ -437,21 +477,27 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q (BH, Lq, D); k, v (BH, Lk, D);
 // mask (BH / H, Lk) bytes or null; out like q; lse (BH, Lq) float32.
+// Dropout: inv_keep = 1 / (1 - rate) and keep_thresh = round((1 - rate)
+// * 2^32) capped at 2^32 - 1; inv_keep = 0 (rate 0) means no dropout.
 // Returns the cudaError_t of the launch (0 on success).
 int sola_flash_attn_fwd(const void* q, const void* k, const void* v,
                         const unsigned char* mask, void* out, float* lse,
                         int BH, int H, int Lq, int Lk, int D, int dtype,
-                        float scale, void* stream) {
+                        float scale, unsigned int seed,
+                        unsigned int keep_thresh, float inv_keep,
+                        void* stream) {
   if (D <= 0 || D > 256 || D % 8 != 0 || Lq <= 0 || Lk <= 0 || BH <= 0 ||
       H <= 0 || BH % H != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(q, k, v, mask, out, lse, BH, H, Lq, Lk, D, scale, s);
+    return launch<float>(q, k, v, mask, out, lse, BH, H, Lq, Lk, D, scale,
+                         seed, keep_thresh, inv_keep, s);
   }
   if (dtype == 1) {
-    return launch<bf16>(q, k, v, mask, out, lse, BH, H, Lq, Lk, D, scale, s);
+    return launch<bf16>(q, k, v, mask, out, lse, BH, H, Lq, Lk, D, scale,
+                        seed, keep_thresh, inv_keep, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 # every library of the package: name -> its sources under csrc/
 LIBRARIES = {"flash_attn_fwd": ("flash_attn_fwd.cu",),
+             "flash_attn_bwd": ("flash_attn_bwd.cu",),
              "ms_deform_attn_fwd": ("ms_deform_attn_fwd.cu",)}
 
 _lock = threading.Lock()
@@ -45,9 +46,13 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> tuple:
+    """(sources, library path): the path is keyed by the flags, the sources
+    and every header under csrc/ (which a source may include)."""
     paths = [os.path.join(CSRC_DIR, s) for s in LIBRARIES[name]]
+    headers = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                     if f.endswith(".cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + headers:
         with open(p, "rb") as f:
             digest.update(f.read())
     return paths, os.path.join(BUILD_DIR,

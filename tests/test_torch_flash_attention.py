@@ -130,9 +130,15 @@ def test_bf16_plain_version_casts_p_like_the_kernel():
 
 
 def test_dropout_is_not_ported_yet():
+    """Dropout is ported (tests/test_torch_flash_backward.py); what stays
+    refused is a rate without a seed, as in the JAX package, and a rate of
+    1 or more."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(8, 1, 1, 8, 8, 8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout_seed"):
         tfa.fused_attention(q, k, v, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout rate"):
+        tfa.fused_attention(q, k, v, dropout_rate=1.0,
+                            dropout_seed=torch.tensor([1]))
 
 
 def test_cpu_path_counts_no_launch():

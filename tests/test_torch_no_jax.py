@@ -33,6 +33,11 @@ def _sources():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "sola_torch.trackgen.tokens_grid" in mods
+    for name in ("config", "cli.train", "data.dataset", "data.device_cache",
+                 "data.synthetic", "models.attention", "models.convert",
+                 "models.layers", "models.selection", "models.text",
+                 "train.loop", "train.loss", "train.schedule", "train.state"):
+        assert f"sola_torch.{name}" in mods, name
     code = f"""
 import importlib.abc, sys
 BLOCKED = {BLOCKED!r}
@@ -115,3 +120,17 @@ def test_gdino_entry_points_default_to_cuda(monkeypatch, tmp_path):
             main(argv)
     assert load_grounding_dino(None, cfg=GDINOConfig.tiny_test(),
                                device="cpu").device.type == "cpu"
+
+
+def test_train_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The selection trainer and its CLI refuse to run without CUDA unless
+    asked for the CPU; the CPU runs are in tests/test_torch_train.py."""
+    import torch
+
+    from sola_torch.cli import train as train_cli
+    from sola_torch.train.loop import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train({})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--config", "mevis/default"])
