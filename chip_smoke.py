@@ -11,7 +11,10 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    kernel against its plain PyTorch
    version on the card at the shapes and types the main path gives it
    (bf16 in memory attention, fp32 at Hiera's global blocks, whose shape
-   is checked in bf16 too), and shows the limits reject a wrong key tile;
+   is checked in bf16 too) and at check shapes in both types (ragged
+   head dims, a partial 128-row block, a zero-filled last key tile, masks
+   that empty alternate key tiles or all but the last, one batch*head),
+   and shows the limits reject a wrong key tile;
    times kernel, plain version, one library call (a yardstick the port
    never calls) and the bound (the least time the card could take).
 3. The main path: SAM2 hiera-L (full width, seeded random weights) built by
@@ -80,11 +83,14 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
-# H100 SXM datasheet peaks for the inputs' type: bf16 on the tensor cores,
-# float32 outside them (the kernel's fp32 path uses 3xTF32 on the tensor
-# cores, which could reach 495 / 3 = 165 TFLOP/s)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM datasheet peaks for the inputs' type: bf16 on the tensor cores;
+# float32 as 3xTF32 on the tensor cores, 495 / 3 = 165 TFLOP/s. fp32 work
+# can be done at full fp32 accuracy that way (the flash forward's fp32 path
+# does it), so the least time for it is set by that rate and not by the
+# 67 TFLOP/s of fp32 FMAs outside the tensor cores.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 165e12}
 PEAK_BYTES = 3.35e12          # HBM3
+FP32_FMA_FLOPS = 67e12        # fp32 FMAs outside the tensor cores (the gather)
 # Kernel against its plain version, per shape: the largest error within one
 # ulp of the largest |out| in the output's type (bf16 rounds the output and
 # P before PV; fp32 allows 128 fp32 ulps for 3xTF32 and the summation
@@ -94,6 +100,9 @@ PEAK_BYTES = 3.35e12          # HBM3
 OUT_MAX_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -16}
 OUT_RMS_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 LSE_ATOL = 1e-4               # fp32 lse near log(Lk) ~ 10: ~100 fp32 ulps
+# keys per tile of the flash forward (kKeyTile and kKeyTile32 in
+# csrc/flash_attn_fwd.cu), the unit of its masked-tile skip
+KEY_TILE = {torch.bfloat16: 64, torch.float32: 32}
 T_FRAMES, H_VID, W_VID = 12, 480, 854
 
 
@@ -114,8 +123,9 @@ def ptxas_instance(library: str, line: str) -> str:
     import re
     m = re.search(r"'(_Z\S+)'", line)
     sym = m.group(1) if m else line
-    kern = next((k for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                             "flash_bwd_dkv_kernel", "ms_deform_fwd_kernel")
+    kern = next((k for k in ("flash_fwd_wgmma_kernel", "flash_fwd_tf32_kernel",
+                             "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                             "ms_deform_fwd_kernel")
                  if k in sym), library)
     args = ["bf16" if "bfloat16" in sym else "float"]
     d = re.search(r"Li(\d+)E", sym)
@@ -181,7 +191,34 @@ def attention_cases(gen):
     full[1] = False  # every key of batch entry 1 masked
     cases.append(("fully_masked_row", "check", bf16, 2, 2, 100, 130, 72,
                   full.cuda()))
+    # in both types: a partial 128-row block (Lq 100) over a last key tile
+    # that TMA zero-fills (Lk 130); key tiles valid, three empty, valid, ...,
+    # and for one batch entry only the ragged last tile; one batch*head
+    for dtype, tag in ((bf16, "bf16"), (fp32, "fp32")):
+        for d in (72, 256):
+            cases.append((f"partial_block_d{d}_{tag}", "check", dtype, 2, 2,
+                          100, 130, d, None))
+        cases.append((f"alternating_tiles_{tag}", "check", dtype, 2, 2, 200,
+                      583, 256, alternating_tile_mask(dtype, 583, gen)))
+        cases.append((f"one_head_{tag}", "check", dtype, 1, 1, 100, 130, 72,
+                      None))
     return cases
+
+
+def alternating_tile_mask(dtype, lk: int, gen) -> torch.Tensor:
+    """(2, lk) mask over the kernel's key tiles of ``dtype``: entry 0 has
+    valid keys in tiles 0, 4, 8, ... and none in the others; entry 1 only
+    in the ragged last tile."""
+    tile = KEY_TILE[dtype]
+    mask = torch.zeros(2, lk, dtype=torch.bool)
+    for t0 in range(0, lk, 4 * tile):
+        keys = torch.rand(min(tile, lk - t0), generator=gen) > 0.5
+        keys[0] = True
+        mask[0, t0:t0 + len(keys)] = keys
+    last = (lk - 1) // tile * tile
+    mask[1, last:] = torch.rand(lk - last, generator=gen) > 0.5
+    mask[1, lk - 1] = True
+    return mask.cuda()
 
 
 def attention_work(b, h, lq, lk, d, mask, itemsize):
@@ -394,7 +431,7 @@ def check_deform_kernel(gen) -> dict:
                   + out.numel() * out.element_size())
         flops = 2.0 * 4 * b * lq * heads * len(levels) * points * hd
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        t_ops = flops / FP32_FMA_FLOPS * 1e3
         row = {"shape": name, "site": site, "dtype": str(dtype), "b": b,
                "lq": lq, "levels": [list(hw) for hw in levels],
                "heads": heads, "head_dim": hd, "points": points,
@@ -1628,7 +1665,7 @@ def run_selection_training(fa) -> dict:
                                    configs["train"], gen)
     step_ms = host_ms(step, iters=5)
     prof = profile_forward(step, kernels_of=(
-        ("flash_fwd", "flash_fwd_kernel"),
+        ("flash_fwd", "flash_fwd_"),  # the wgmma and tf32 kernels
         ("flash_bwd_dq", "flash_bwd_dq_kernel"),
         ("flash_bwd_dkv", "flash_bwd_dkv_kernel")))
     row = {"config": dataclasses.asdict(cfg), "corpus_s": corpus_s,

@@ -7,7 +7,10 @@ Counterpart of ``sola_tpu/ops/flash_attention.py`` (``fused_attention``,
 * ``sola_torch/csrc/flash_attn_fwd.cu`` replaces ``_attn_kernel``:
   blockwise online-softmax ``softmax(QK^T/sqrt(D)) V`` with fp32
   statistics, masked keys scored -1e30, a per-row logsumexp, and training
-  dropout on the probabilities;
+  dropout on the probabilities. bf16 runs a warp-specialised design (TMA
+  loads into a 2-stage ring, ``wgmma`` products, O in registers); fp32 runs
+  3xTF32 ``mma.sync`` with a ``cp.async`` ring. Each block lists the key
+  tiles that its mask row leaves non-empty and skips the others;
 * ``sola_torch/csrc/flash_attn_bwd.cu`` replaces ``_attn_bwd_dq_kernel``
   and ``_attn_bwd_dkv_kernel``: dQ, and dK/dV, recomputed from the saved
   logsumexp.

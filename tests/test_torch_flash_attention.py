@@ -129,10 +129,10 @@ def test_bf16_plain_version_casts_p_like_the_kernel():
     np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=1e-5)
 
 
-def test_dropout_is_not_ported_yet():
-    """Dropout is ported (tests/test_torch_flash_backward.py); what stays
-    refused is a rate without a seed, as in the JAX package, and a rate of
-    1 or more."""
+def test_dropout_needs_a_seed_and_a_rate_below_one():
+    """Dropout itself is held in tests/test_torch_flash_backward.py; what
+    stays refused is a rate without a seed, as in the JAX package, and a
+    rate of 1 or more."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(8, 1, 1, 8, 8, 8))
     with pytest.raises(ValueError, match="dropout_seed"):
         tfa.fused_attention(q, k, v, dropout_rate=0.1)
@@ -146,3 +146,4 @@ def test_cpu_path_counts_no_launch():
     q, k, v = (torch.from_numpy(x) for x in _inputs(9, 1, 1, 8, 8, 8))
     tfa.fused_attention(q, k, v)
     assert tfa.launches == before
+
