@@ -31,9 +31,13 @@ Phases (any failure raises and exits nonzero, and no result line prints):
 5. The deformable sampling kernel against its plain version on the card, at
    GroundingDINO's encoder (E = 1 and 4 expressions over the 800x1333
    canvas's four levels) and decoder (E = 4 x 900 queries) shapes in fp32
-   and bf16, plus ragged check-only shapes; shows the limits reject a
-   one-pixel shift and a dropped point; times kernel, plain version and
-   bound (no single PyTorch call computes this function).
+   and bf16, plus check-only shapes for every branch of the kernel (several
+   queries a warp with a ragged last warp, a warp per 32 slots of a wider
+   query, 4-, 2- and 1-channel vectors, queries wholly outside the maps, whose
+   output must be exactly 0); shows the limits reject a one-pixel shift and
+   a dropped point; times kernel, plain version and bound (no single
+   PyTorch call computes this function), and gives the rate at which the
+   kernel gathers value rows.
 6. The GroundingDINO path: Swin-T + BERT-base (GDINOConfig defaults) and
    SAM2 hiera-L with seeded random weights, prompts_gdino.main then
    tokens_gdino.main on a synthetic 12-frame 480x854 video with 3
@@ -129,7 +133,9 @@ def ptxas_instance(library: str, line: str) -> str:
                  if k in sym), library)
     args = ["bf16" if "bfloat16" in sym else "float"]
     d = re.search(r"Li(\d+)E", sym)
-    if d:
+    if d and kern == "ms_deform_fwd_kernel":
+        args.append(f"{d.group(1)} channels a lane")
+    elif d:
         args.append(f"D<={d.group(1)}")
     if "Lb1E" in sym:
         args.append("dropout")
@@ -147,6 +153,25 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, part: str):
+    """Mean device time of the kernels whose name holds ``part`` over
+    ``iters`` calls of ``fn``, from torch.profiler: the kernel alone,
+    without the host time between launches that cuda_ms also counts when a
+    call is shorter than its host work. None if the profiler records no
+    such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ts = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and part in e.name]
+    return sum(ts) / len(ts) / 1e3 if ts else None
 
 
 # ---------------------------------------------------------------------------
@@ -327,12 +352,14 @@ GDINO_LEVELS = ((100, 167), (50, 84), (25, 42), (13, 21))
 
 
 def deform_inputs(gen, b, lq, levels, heads, head_dim, points, dtype,
-                  encoder: bool):
+                  encoder: bool, outside: int = 0):
     """Values, locations and weights as the path hands them to the kernel:
     encoder queries sample near their own position (their reference point
     plus a few pixels of offset), decoder queries near random boxes; one
     location in eight is drawn over [-0.2, 1.2], so corners fall outside
-    the map. Weights are softmaxed over levels x points."""
+    the map. Weights are softmaxed over levels x points. With ``outside``,
+    every location of the queries in ``outside_queries`` lies right of
+    every map (x in [1.3, 2], all four corners out)."""
     n_lv = len(levels)
     s = sum(h * w for h, w in levels)
     value = torch.randn(b, s, heads * head_dim, generator=gen)
@@ -353,47 +380,81 @@ def deform_inputs(gen, b, lq, levels, heads, head_dim, points, dtype,
     wild = torch.rand(b, lq, heads, n_lv, points, 1, generator=gen) < 0.125
     loc = torch.where(wild, torch.rand(loc.shape, generator=gen) * 1.4 - 0.2,
                       loc)
+    if outside:
+        out_q = outside_queries(lq, outside)
+        loc[:, out_q, ..., 0] = 1.3 + 0.7 * torch.rand(
+            loc[:, out_q, ..., 0].shape, generator=gen)
     wgt = torch.softmax(torch.randn(b, lq, heads, n_lv * points,
                                     generator=gen), -1).reshape(
         b, lq, heads, n_lv, points)
     return (value.cuda().to(dtype), loc.cuda(), wgt.cuda().to(dtype))
 
 
+def outside_queries(lq: int, every: int) -> list:
+    """The queries deform_inputs puts wholly outside the maps: every
+    ``every``-th one and the last."""
+    return sorted(set(range(every - 1, lq, every)) | {lq - 1})
+
+
 def deform_cases():
-    """(name, site, dtype, b, lq, levels, heads, head_dim, points, encoder)
-    at the main path's shapes: the encoder's self-attention over every
-    position of the canvas (E = 1 and E = 4 expressions) and the decoder's
-    900 queries (E = 4), fp32 (the CLI default) and bf16 (--bf16); then
-    check-only shapes for the kernel's other branches (head_dim < 32 and
-    > 32, more than 32 level x point terms)."""
+    """(name, site, dtype, b, lq, levels, heads, head_dim, points, encoder,
+    outside) at the main path's shapes: the encoder's self-attention over
+    every position of the canvas (E = 1 and E = 4 expressions) and the
+    decoder's 900 queries (E = 4), fp32 (the CLI default) and bf16
+    (--bf16); then check-only shapes for the kernel's other branches: a
+    query's heads x vectors below 32 lanes (several queries a warp, a
+    ragged last warp), above 32 (8 heads x 64: two warps), head dims that
+    take 4-, 2- and 1-channel vectors (20, 6, 13), more than 32 level x
+    point terms, and queries with every location outside the maps."""
     lq_enc = sum(h * w for h, w in GDINO_LEVELS)
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = "" if dtype == torch.float32 else "_bf16"
+    for dtype in (f32, bf16):
+        tag = "" if dtype == f32 else "_bf16"
         cases += [(f"encoder_e1{tag}", "encoder", dtype, 1, lq_enc,
-                   GDINO_LEVELS, 8, 32, 4, True),
+                   GDINO_LEVELS, 8, 32, 4, True, 0),
                   (f"encoder_e4{tag}", "encoder", dtype, 4, lq_enc,
-                   GDINO_LEVELS, 8, 32, 4, True),
+                   GDINO_LEVELS, 8, 32, 4, True, 0),
                   (f"decoder_e4{tag}", "decoder", dtype, 4, 900,
-                   GDINO_LEVELS, 8, 32, 4, False)]
+                   GDINO_LEVELS, 8, 32, 4, False, 0)]
     small = ((23, 37), (12, 19), (6, 10))
-    cases += [("ragged_d16", "check", torch.float32, 2, 333, small, 2, 16, 3,
-               False),
-              ("ragged_d48_bf16", "check", torch.bfloat16, 2, 333, small, 3,
-               48, 3, False),
-              ("terms_40", "check", torch.float32, 2, 300, small + ((3, 5),),
-               4, 32, 10, False)]
+    cases += [("ragged_d16", "check", f32, 2, 333, small, 2, 16, 3, False, 0),
+              ("ragged_d48_bf16", "check", bf16, 2, 333, small, 3, 48, 3,
+               False, 0),
+              ("terms_40", "check", f32, 2, 300, small + ((3, 5),), 4, 32, 10,
+               False, 0),
+              ("heads8_d64", "check", f32, 2, 300, small, 8, 64, 4, False,
+               0),
+              ("ragged_d20", "check", f32, 2, 333, small, 2, 20, 3, False, 0),
+              ("ragged_d20_bf16", "check", bf16, 2, 333, small, 2, 20, 3,
+               False, 0),
+              ("ragged_d6", "check", f32, 2, 333, small, 3, 6, 3, False, 0),
+              ("ragged_d13_bf16", "check", bf16, 2, 333, small, 2, 13, 3,
+               False, 0),
+              ("outside_d16_bf16", "check", bf16, 2, 333, small, 2, 16, 3,
+               False, 7)]
     return cases
+
+
+def gathered_rows(loc, wgt, levels) -> int:
+    """Value rows (of head_dim channels) the kernel loads: the corners whose
+    weight attn_w * corner_w is not 0 (a zero-weight corner is skipped)."""
+    from sola_torch.trackgen.gdino.deformable import corner_terms
+    rows = 0
+    for lvl, (h, w) in enumerate(levels):
+        _, cw = corner_terms(loc[:, :, :, lvl], h, w)
+        rows += int(((cw * wgt[:, :, :, lvl, :, None].float()) != 0).sum())
+    return rows
 
 
 def check_deform_kernel(gen) -> dict:
     from sola_torch.ops import deformable_interp as di
     from sola_torch.trackgen.gdino.deformable import ms_deform_attn_core
     rows = []
-    for (name, site, dtype, b, lq, levels, heads, hd, points,
-         encoder) in deform_cases():
+    for (name, site, dtype, b, lq, levels, heads, hd, points, encoder,
+         outside) in deform_cases():
         value, loc, wgt = deform_inputs(gen, b, lq, levels, heads, hd,
-                                        points, dtype, encoder)
+                                        points, dtype, encoder, outside)
         out = di.ms_deform_attn(value, loc, wgt, levels)
         torch.cuda.synchronize()
         ref = ms_deform_attn_core(value, loc, wgt, levels).float()
@@ -403,6 +464,9 @@ def check_deform_kernel(gen) -> dict:
             raise AssertionError(
                 f"{name}: kernel disagrees with its plain version: max "
                 f"{err} (tol {tol}), rms {rms_err} (tol {rms_tol})")
+        if outside and out[:, outside_queries(lq, outside)].any():
+            raise AssertionError(f"{name}: queries sampling only outside "
+                                 f"the maps give a nonzero output")
         # the limits must reject a wrong kernel output: level 0's samples
         # shifted by one pixel in x, or point 0's weight dropped
         w0 = levels[0][1]
@@ -420,6 +484,9 @@ def check_deform_kernel(gen) -> dict:
                                      f"output ({what}: max {e}, rms {r})")
             wrong[what] = (e, r)
         ms = cuda_ms(lambda: di.ms_deform_attn(value, loc, wgt, levels), 20)
+        kernel_ms = device_ms(
+            lambda: di.ms_deform_attn(value, loc, wgt, levels), 20,
+            "ms_deform")
         plain_ms = cuda_ms(lambda: ms_deform_attn_core(value, loc, wgt,
                                                        levels), 5)
         # bytes: each input read once at the type the path hands it over,
@@ -430,6 +497,9 @@ def check_deform_kernel(gen) -> dict:
                   + wgt.numel() * wgt.element_size()
                   + out.numel() * out.element_size())
         flops = 2.0 * 4 * b * lq * heads * len(levels) * points * hd
+        # what the kernel gathers out of L2 / L1: a row of head_dim
+        # channels for each corner of nonzero weight
+        gathered = gathered_rows(loc, wgt, levels) * hd * value.element_size()
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = flops / FP32_FMA_FLOPS * 1e3
         row = {"shape": name, "site": site, "dtype": str(dtype), "b": b,
@@ -441,10 +511,11 @@ def check_deform_kernel(gen) -> dict:
                "ref_rms": ref.square().mean().sqrt().item(),
                "wrong_shift_max_rms": wrong["shift"],
                "wrong_drop_max_rms": wrong["drop"],
-               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-               "bound_ms": max(t_bytes, t_ops),
+               "ms": ms, "device_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "gb_per_s": nbytes / ms / 1e6}
+               "gb_per_s": nbytes / ms / 1e6, "gathered_bytes": gathered,
+               "gathered_gb_per_s": gathered / (kernel_ms or ms) / 1e6}
         rows.append(row)
         log(f"  {name:>16} {str(dtype)[6:]} b={b} lq={lq} heads={heads} "
             f"d={hd} L={len(levels)} P={points}: max err {err:.3g} (tol "
@@ -452,9 +523,11 @@ def check_deform_kernel(gen) -> dict:
             f"1-px shift gives max/rms {wrong['shift'][0]:.3g}/"
             f"{wrong['shift'][1]:.3g}, a dropped point "
             f"{wrong['drop'][0]:.3g}/{wrong['drop'][1]:.3g}; kernel_ms "
-            f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+            f"{ms:.4f} (kernel alone {kernel_ms or float('nan'):.4f}) "
+            f"plain_ms {plain_ms:.4f} bound_ms "
             f"{row['bound_ms']:.4f} ({row['bound_by']}), "
-            f"{row['gb_per_s']:.0f} GB/s of unique bytes")
+            f"{row['gb_per_s']:.0f} GB/s of unique bytes, "
+            f"{row['gathered_gb_per_s']:.0f} GB/s gathered (kernel alone)")
         del value, loc, wgt, out, ref
     torch.cuda.empty_cache()
     return {"rows": rows}

@@ -1,16 +1,22 @@
-"""Time the port's flash-attention forward of this checkout beside another
+"""Time one of the port's kernels in this checkout beside another
 checkout's (the parent commit's, unpacked with ``git archive``), in turns
-other, this, this, other, at every shape of chip_smoke.py's phase 2 and
-phase 8. Needs one CUDA card.
+other, this, this, other, on the same seeded inputs. Needs one CUDA card.
 
     python3 scripts/torch_flash_fwd_vs_parent.py OTHER_DIR [--out FILE]
+    python3 scripts/torch_flash_fwd_vs_parent.py OTHER_DIR --kernel deform
+
+``--kernel flash_fwd`` (the default) times ``flash_attention._launch`` at
+every shape of chip_smoke.py's phase 2 and phase 8. ``--kernel deform``
+times ``deformable_interp._launch`` at every shape of phase 5, and checks
+that the two checkouts' outputs are ``torch.equal`` at each (the script
+exits nonzero if one is not).
 
 Each turn is a subprocess that makes the same seeded inputs, imports
-``sola_torch`` from one checkout, builds its forward library and times
-``flash_attention._launch`` with CUDA events (chip_smoke.cuda_ms). Prints a
-table (ms of each checkout, the mean of its two turns) after the card's
-name and power limit, and writes every turn to --out (default
-chiprun_out/flash_fwd_vs_parent.json).
+``sola_torch`` from one checkout, builds its library and times the kernel's
+launch with CUDA events (chip_smoke.cuda_ms). Prints a table (ms of each
+checkout, the mean of its two turns) after the card's name and power
+limit, and writes every turn to --out (default
+chiprun_out/flash_fwd_vs_parent.json or chiprun_out/deform_vs_parent.json).
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ import argparse
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,7 +42,8 @@ def _chip_smoke():
 
 
 def worker(root: str) -> None:
-    """Times one checkout's forward; prints {shape: ms} as its last line."""
+    """Times one checkout's flash forward; prints {shape: ms} as its last
+    line."""
     import torch
     cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,44 +71,109 @@ def worker(root: str) -> None:
     print(json.dumps(times))
 
 
+def deform_worker(root: str, save: str) -> None:
+    """Times one checkout's deformable sampling kernel, by CUDA events over
+    back-to-back calls (ms) and by the profiler's kernel time alone
+    (device_ms); writes each shape's output to SAVE/<shape>.pt when SAVE is
+    given; prints {shape: {"ms": .., "device_ms": ..}} as its last line."""
+    import torch
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    runs = []  # (name, levels, value, loc, weights)
+    for (name, _, dtype, b, lq, levels, heads, hd, points, encoder,
+         outside) in cs.deform_cases():
+        runs.append((name, levels, *cs.deform_inputs(
+            gen, b, lq, levels, heads, hd, points, dtype, encoder, outside)))
+    sys.path.insert(0, root)
+    from sola_torch.ops import deformable_interp as di
+    assert os.path.dirname(di.__file__).startswith(os.path.abspath(root))
+    times = {}
+    for name, levels, value, loc, wgt in runs:
+        if save:
+            torch.save(di._launch(value, levels, loc, wgt).cpu(),
+                       os.path.join(save, f"{name}.pt"))
+
+        def fn():
+            return di._launch(value, levels, loc, wgt)
+        times[name] = {"ms": cs.cuda_ms(fn, 20), "device_ms": cs.device_ms(
+            fn, 20, "ms_deform") or float("nan")}
+    print(json.dumps(times))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="the other checkout (e.g. the parent's)")
-    ap.add_argument("--out", default=os.path.join(
-        HERE, "chiprun_out", "flash_fwd_vs_parent.json"))
+    ap.add_argument("--kernel", choices=("flash_fwd", "deform"),
+                    default="flash_fwd")
+    ap.add_argument("--out", help="JSON of every turn (default "
+                    "chiprun_out/<kernel>_vs_parent.json)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--save", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker)
+        if args.kernel == "deform":
+            deform_worker(args.worker, args.save)
+        else:
+            worker(args.worker)
         return
+    out = args.out or os.path.join(HERE, "chiprun_out",
+                                   f"{args.kernel}_vs_parent.json")
     other = os.path.abspath(args.other)
+    saved = tempfile.mkdtemp(prefix="vs_parent_")
     turns = []
-    for tree, root in (("other", other), ("this", HERE), ("this", HERE),
-                       ("other", other)):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), args.other,
-             "--worker", root], cwd=root, capture_output=True, text=True,
-            check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{tree} turn failed ({proc.returncode}):\n"
-                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        turns.append({"tree": tree, "root": root,
-                      "ms": json.loads(proc.stdout.strip().splitlines()[-1])})
-    print(_chip_smoke().smi_line())
-    rows = []
-    for shape in turns[0]["ms"]:
-        mean = {tree: sum(t["ms"][shape] for t in turns if t["tree"] == tree)
-                / 2 for tree in ("other", "this")}
-        rows.append({"shape": shape, "other_ms": mean["other"],
-                     "this_ms": mean["this"],
-                     "turns_ms": [t["ms"][shape] for t in turns]})
-        print(f"{shape:>28}  other {mean['other']:9.4f} ms  this "
-              f"{mean['this']:9.4f} ms  ratio "
-              f"{mean['other'] / mean['this']:7.2f}")
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump({"order": [t["tree"] for t in turns], "rows": rows,
+    try:
+        for tree, root in (("other", other), ("this", HERE), ("this", HERE),
+                           ("other", other)):
+            save = ""
+            if args.kernel == "deform" and not any(t["tree"] == tree
+                                                   for t in turns):
+                save = os.path.join(saved, tree)  # each tree's first turn
+                os.makedirs(save)
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), args.other,
+                 "--kernel", args.kernel, "--worker", root, "--save", save],
+                cwd=root, capture_output=True, text=True, check=False)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{tree} turn failed ({proc.returncode}):\n"
+                    f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            times = json.loads(proc.stdout.strip().splitlines()[-1])
+            turns.append({"tree": tree, "root": root, "ms": {
+                k: v if isinstance(v, dict) else {"ms": v}
+                for k, v in times.items()}})
+        print(_chip_smoke().smi_line())
+        rows = []
+        for shape, metrics in turns[0]["ms"].items():
+            row, line = {"shape": shape}, f"{shape:>28}"
+            for key in metrics:  # ms, and device_ms for deform
+                turn_ms = [t["ms"][shape][key] for t in turns]
+                mean = {tree: sum(v for t, v in zip(turns, turn_ms)
+                                  if t["tree"] == tree) / 2
+                        for tree in ("other", "this")}
+                row.update({f"other_{key}": mean["other"],
+                            f"this_{key}": mean["this"],
+                            f"turns_{key}": turn_ms})
+                line += (f"  {key}: other {mean['other']:9.4f} this "
+                         f"{mean['this']:9.4f} ratio "
+                         f"{mean['other'] / mean['this']:6.2f}")
+            if args.kernel == "deform":
+                import torch
+                a, b = (torch.load(os.path.join(saved, tree, f"{shape}.pt"))
+                        for tree in ("other", "this"))
+                row["equal"] = bool(torch.equal(a, b))
+                line += f"  equal {row['equal']}"
+            rows.append(row)
+            print(line)
+    finally:
+        shutil.rmtree(saved, ignore_errors=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"kernel": args.kernel,
+                   "order": [t["tree"] for t in turns], "rows": rows,
                    "roots": {"other": other, "this": HERE}}, f, indent=1)
+    unequal = [r["shape"] for r in rows if r.get("equal") is False]
+    if unequal:
+        sys.exit(f"outputs differ between the checkouts at {unequal}")
 
 
 if __name__ == "__main__":
