@@ -49,17 +49,19 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    and SAM2Config.tiny_test on the card (fp32) against the CPU.
 8. The training attention kernels against their plain versions at the
    selection model's three call sites (obj_attn, motion_attn,
-   object2lang_attn; fp32, full width, the path's masks) and a bf16 check
-   shape: the forward at dropout 0 and 0.1, dQ and dK/dV without and with
-   dropout, masked keys' gradients exactly zero; shows the limits reject
-   three wrong backward results; times each kernel, its plain version, a
-   library yardstick and the bound.
+   object2lang_attn; fp32, full width, the path's masks), a bf16 check
+   shape and three backward check shapes (keys spanning several chunks,
+   D 256 in bf16, a batch entry with no valid key): the forward at dropout
+   0 and 0.1, the fused backward (dQ, dK, dV) without and with dropout,
+   masked keys' gradients exactly zero; shows the limits reject three
+   wrong backward results; times each kernel (by call and alone), its
+   plain version, a library yardstick and the bound.
 9. Selection training at full width through ``sola_torch.train.loop.train``
    (SelectionConfig defaults with the Pallas attention route, a seeded
    random RoBERTa-large, configs/mevis/default.yaml's train values) on a
    synthetic corpus at bench.py's train shapes, 2 epochs: checks log.txt,
    that both checkpoints load strictly and the weights moved, and the
-   three kernels' launches at each call site; warm steps/s, pairs/s, peak
+   two kernels' launches at each call site; warm steps/s, pairs/s, peak
    memory and one profiled step.
 10. A small reference for training: a tiny config trained 2 epochs on the
    card and on the CPU; log.txt numbers within a tolerance and equal
@@ -128,7 +130,7 @@ def ptxas_instance(library: str, line: str) -> str:
     m = re.search(r"'(_Z\S+)'", line)
     sym = m.group(1) if m else line
     kern = next((k for k in ("flash_fwd_wgmma_kernel", "flash_fwd_tf32_kernel",
-                             "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                             "flash_bwd_kernel",
                              "ms_deform_fwd_kernel")
                  if k in sym), library)
     args = ["bf16" if "bfloat16" in sym else "float"]
@@ -156,8 +158,8 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def device_ms(fn, iters: int, part: str):
-    """Mean device time of the kernels whose name holds ``part`` over
-    ``iters`` calls of ``fn``, from torch.profiler: the kernel alone,
+    """Device time per call of ``fn`` of the kernels whose name holds
+    ``part``, over ``iters`` calls, from torch.profiler: the kernels alone,
     without the host time between launches that cuda_ms also counts when a
     call is shorter than its host work. None if the profiler records no
     such kernel."""
@@ -171,7 +173,7 @@ def device_ms(fn, iters: int, part: str):
     ts = [e.time_range.end - e.time_range.start for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and part in e.name]
-    return sum(ts) / len(ts) / 1e3 if ts else None
+    return sum(ts) / iters / 1e3 if ts else None
 
 
 # ---------------------------------------------------------------------------
@@ -1418,6 +1420,25 @@ def selection_attention_cases(gen):
          SEL_N * SEL_T, SEL_WORDS + SEL_NEG, lang.cuda())]
 
 
+def backward_check_cases(gen):
+    """(name, dtype, b, h, lq, lk, d, mask) of the shapes that reach the
+    parts of the fused backward that the selection sites do not: keys that
+    span several chunks (dQ through the fp32 workspace, several query
+    tiles), D 256 in bf16 with a ragged mask (32-slot chunks, two of them),
+    and a batch entry with no valid key (every key takes part)."""
+    ragged = (torch.rand(2, 90, generator=gen) < 0.7)
+    ragged[:, 0] = True
+    tracks = torch.zeros(SEL_B * SEL_T, SEL_N, dtype=torch.bool)
+    tracks[:, :40] = True
+    tracks[3] = False
+    return [
+        ("many_keys", torch.float32, 2, 8, 300, 200, 64,
+         torch.ones(2, 200, dtype=torch.bool).cuda()),
+        ("d256_bf16", torch.bfloat16, 2, 8, 70, 90, 256, ragged.cuda()),
+        ("no_valid_key", torch.float32, SEL_B * SEL_T, SEL_HEADS, SEL_N,
+         SEL_N, SEL_D, tracks.cuda())]
+
+
 def grad_limits_fail(grads, refs, dtype) -> list:
     """The gradients among (dq, dk, dv) that break the limits against the
     fp32 references: [(name, max err, limit, rms err, limit)]."""
@@ -1430,30 +1451,59 @@ def grad_limits_fail(grads, refs, dtype) -> list:
     return bad
 
 
+def bwd_work(b, h, lq, lk, d, mask, itemsize) -> tuple:
+    """(FLOPs, bytes) of the fused backward on these inputs: 10 FLOPs per
+    (query, key that takes part, d) for S, dP, dQ, dK and dV; Q, K, V and
+    dO read and dQ, dK and dV written once, lse, delta and the mask read
+    once."""
+    flops_fwd, _ = attention_work(b, h, lq, lk, d, mask, itemsize)
+    qo_bytes = b * h * lq * d * itemsize   # q, do, dq: one each
+    kv_bytes = b * h * lk * d * itemsize   # k, v, dk, dv: one each
+    return (10 * flops_fwd / 4.0, 3 * qo_bytes + 4 * kv_bytes
+            + 2 * 4 * b * h * lq + (0 if mask is None else b * lk))
+
+
+def bound(flops, nbytes, dtype) -> tuple:
+    """(least ms, what bounds it) at the card's peaks."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
 def check_flash_training_kernels(fa, gen) -> dict:
-    """Forward at rates 0 and 0.1, and dQ and dK/dV without and with
-    dropout, against the plain versions at the selection shapes; the limits
-    must reject three wrong backward results (the mask of seed + 1, dS
-    without -delta, dV from the undropped P). Times each kernel, its plain
-    version, its bound and a library yardstick (SDPA forward; SDPA's
-    backward = forward + backward - forward, for dQ and dK/dV together)."""
+    """Forward at rates 0 and 0.1, and the fused backward without and with
+    dropout, against the plain versions at the selection shapes and the
+    backward check shapes; the limits must reject three wrong backward
+    results (the mask of seed + 1, dS without -delta, dV from the
+    undropped P). Times each kernel (CUDA events over calls, and the
+    backward alone by torch.profiler), its plain version, its bound and a
+    library yardstick (SDPA forward; SDPA's backward = forward + backward -
+    forward)."""
     import torch.nn.functional as F
+    cases = [(name, site, dtype, b, SEL_HEADS, lq, lk, SEL_D, mask)
+             for name, site, dtype, b, lq, lk, mask
+             in selection_attention_cases(gen)]
+    cases += [(name, "check", dtype, b, h, lq, lk, d, mask)
+              for name, dtype, b, h, lq, lk, d, mask
+              in backward_check_cases(gen)]
     rows = []
-    for name, site, dtype, b, lq, lk, mask in selection_attention_cases(gen):
-        h, d = SEL_HEADS, SEL_D
+    for name, site, dtype, b, h, lq, lk, d, mask in cases:
         q, k, v, do = (torch.randn(b, h, n, d, generator=gen).cuda().to(dtype)
                        for n in (lq, lk, lk, lq))
+        g, rh, kh = fa.bwd_plan(h, lq, lk, d)
         row = {"shape": name, "site": site, "dtype": str(dtype), "b": b,
                "h": h, "lq": lq, "lk": lk, "d": d,
-               "valid_keys": int(mask.sum())}
+               "valid_keys": int(mask.sum()),
+               "plan": {"heads_a_block": g, "rows_a_head": rh,
+                        "key_slots_a_head": kh, "dq_workspace": lk > kh}}
         for rate in (0.0, SEL_RATE):
             seed = SEL_SEED if rate else None
             tag = "drop" if rate else "nodrop"
             out, lse = fa._launch(q, k, v, mask, rate, seed)
             delta = fa.bwd_delta(out, do)
             args = (q, k, v, mask, do, lse, delta, rate, seed)
-            dq, = fa._launch_bwd_kernel("dq", *args)
-            dk, dv = fa._launch_bwd_kernel("dkv", *args)
+            dq, dk, dv = fa._launch_bwd_kernel(*args)
             torch.cuda.synchronize()
             ref, ref_lse = fa.attention_reference(q, k, v, mask, rate, seed)
             err, tol, rms, rms_tol = out_errors(out, ref.float(), dtype)
@@ -1471,16 +1521,18 @@ def check_flash_training_kernels(fa, gen) -> dict:
                 raise AssertionError(f"{name} rate {rate}: backward "
                                      f"disagrees with its plain version: "
                                      f"{bad}")
-            # masked keys: exactly zero dK and dV
-            kmask = ~mask[:, None, :, None].expand(b, h, lk, d)
+            # masked keys of a batch entry with a valid key: exactly zero
+            # dK and dV (an entry with none lets every key take part)
+            kmask = (~mask & mask.any(dim=1, keepdim=True))[
+                :, None, :, None].expand(b, h, lk, d)
             if kmask.any() and (dk.float()[kmask].abs().max() != 0
                                 or dv.float()[kmask].abs().max() != 0):
                 raise AssertionError(f"{name}: masked keys get a gradient")
             row[f"fwd_{tag}"] = {"max_abs_err": err, "max_abs_tol": tol,
                                  "rms_err": rms, "rms_tol": rms_tol,
                                  "lse_max_abs_err": lse_err}
-            for gname, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-                e, t, r_err, r_tol = out_errors(g, r.float(), dtype)
+            for gname, gr, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                e, t, r_err, r_tol = out_errors(gr, r.float(), dtype)
                 row[f"{gname}_{tag}"] = {"max_abs_err": e, "max_abs_tol": t,
                                          "rms_err": r_err, "rms_tol": r_tol}
         # three wrong backward results the limits must reject (dropout on)
@@ -1502,8 +1554,9 @@ def check_flash_training_kernels(fa, gen) -> dict:
         attn_mask = mask[:, None, None, :]
         fwd_ms = cuda_ms(lambda: fa._launch(q, k, v, mask, rate, seed), 20)
         fwd_nodrop_ms = cuda_ms(lambda: fa._launch(q, k, v, mask), 20)
-        dq_ms = cuda_ms(lambda: fa._launch_bwd_kernel("dq", *args), 20)
-        dkv_ms = cuda_ms(lambda: fa._launch_bwd_kernel("dkv", *args), 20)
+        bwd_ms = cuda_ms(lambda: fa._launch_bwd_kernel(*args), 20)
+        bwd_device_ms = device_ms(lambda: fa._launch_bwd_kernel(*args), 20,
+                                  "flash_bwd_")
         plain_fwd_ms = cuda_ms(lambda: fa.attention_reference(
             q, k, v, mask, rate, seed), 5)
         plain_bwd_ms = cuda_ms(lambda: fa.attention_bwd_reference(
@@ -1518,52 +1571,39 @@ def check_flash_training_kernels(fa, gen) -> dict:
                 dropout_p=rate).backward(do)
 
         sdpa_bwd_ms = max(cuda_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms, 0.0)
-        flops_fwd, _ = attention_work(b, h, lq, lk, d, mask,
-                                      q.element_size())
-        per = flops_fwd / 4.0  # one FLOP-unit per (bh, q, valid k, d)
         item = q.element_size()
-        qo_bytes = b * h * lq * d * item   # q, o, do, dq: one each
-        kv_bytes = b * h * lk * d * item   # k, v, dk, dv: one each
-        row_bytes = 4 * b * h * lq         # lse or delta, fp32
-        mask_bytes = b * lk
-        work = {  # (FLOPs, bytes): each input read once, each output
-            # written once
-            "fwd": (4 * per, 2 * qo_bytes + 2 * kv_bytes + row_bytes
-                    + mask_bytes),
-            "dq": (6 * per, 3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes
-                   + mask_bytes),
-            "dkv": (8 * per, 2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes
-                    + mask_bytes)}
+        flops_fwd, bytes_fwd = attention_work(b, h, lq, lk, d, mask, item)
+        work = {"fwd": (flops_fwd, bytes_fwd),
+                "bwd": bwd_work(b, h, lq, lk, d, mask, item)}
         row["fwd_nodrop_ms"] = fwd_nodrop_ms  # the validation pass's
         times = {"fwd": (fwd_ms, plain_fwd_ms, sdpa_fwd_ms),
-                 "dq": (dq_ms, plain_bwd_ms, sdpa_bwd_ms),
-                 "dkv": (dkv_ms, plain_bwd_ms, sdpa_bwd_ms)}
+                 "bwd": (bwd_ms, plain_bwd_ms, sdpa_bwd_ms)}
         for kern, (flops, nbytes) in work.items():
-            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
             ms, plain, lib = times[kern]
+            least, by = bound(flops, nbytes, dtype)
             row[kern] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                         "bound_ms": max(t_ops, t_bytes),
-                         "bound_by": ("operations" if t_ops >= t_bytes
-                                      else "bytes"),
+                         "bound_ms": least, "bound_by": by,
                          "gflops": flops / ms / 1e6}
+        row["bwd"]["device_ms"] = bwd_device_ms
         rows.append(row)
         drop = row["fwd_drop"]
         log(f"  {name:>21} {str(dtype)[6:]} bh={b}x{h} lq={lq} lk={lk} "
-            f"d={d}: fwd max err {drop['max_abs_err']:.3g} (tol "
-            f"{drop['max_abs_tol']:.3g}); dq/dk/dv max err "
+            f"d={d} plan {row['plan']}: fwd max err {drop['max_abs_err']:.3g}"
+            f" (tol {drop['max_abs_tol']:.3g}); dq/dk/dv max err "
             + "/".join(f"{row[g + '_drop']['max_abs_err']:.3g}"
                        for g in ("dq", "dk", "dv"))
             + " (tol " + "/".join(f"{row[g + '_drop']['max_abs_tol']:.3g}"
                                   for g in ("dq", "dk", "dv"))
             + f"); wrong results rejected by {row['wrong_rejected_by']}")
         log(f"    fwd at rate 0: kernel {fwd_nodrop_ms:.4f} ms")
-        for kern in ("fwd", "dq", "dkv"):
+        for kern in ("fwd", "bwd"):
             r = row[kern]
-            log(f"    {kern:>3} at rate {rate}: kernel {r['ms']:.4f} ms, "
-                f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f}"
-                f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                f"{r['gflops']:.1f} GFLOP/s")
+            alone = (f" (alone {r['device_ms']:.4f} ms)"
+                     if r.get("device_ms") is not None else "")
+            log(f"    {kern:>3} at rate {rate}: kernel {r['ms']:.4f} ms"
+                f"{alone}, plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), {r['gflops']:.1f} GFLOP/s")
         del (q, k, v, do, out, lse, delta, args, dq, dk, dv, refs, wrong,
              qg, kg, vg)
     torch.cuda.empty_cache()
@@ -1582,14 +1622,14 @@ TRAIN_VIDEOS, VALID_VIDEOS, OBJECTS, DISTRACTORS, FRAMES, BATCH = (
 
 
 class TrainSiteCounter:
-    """The three flash kernels' launches by call site while a model
-    trains: forward launches between a site module's forward pre-hook and
-    hook, dQ and dK/dV launches between its backward pre-hook and hook. The
-    wrappers alone count; the hooks only read their counters."""
+    """The two flash kernels' launches by call site while a model trains:
+    forward launches between a site module's forward pre-hook and hook,
+    backward launches between its backward pre-hook and hook. The wrappers
+    alone count; the hooks only read their counters."""
 
     def __init__(self, fa):
         self.fa = fa
-        self.counts = {s: {"fwd": 0, "dq": 0, "dkv": 0} for s in ATTN_SITES}
+        self.counts = {s: {"fwd": 0, "bwd": 0} for s in ATTN_SITES}
         self._fwd, self._bwd = [], []
 
     def watch(self, model) -> None:
@@ -1601,8 +1641,7 @@ class TrainSiteCounter:
                     lambda *_: self._fwd.append(fa.launches))
                 m.register_forward_hook(lambda *_, s=site: self._add_fwd(s))
                 m.register_full_backward_pre_hook(
-                    lambda *_: self._bwd.append((fa.bwd_dq_launches,
-                                                 fa.bwd_dkv_launches)))
+                    lambda *_: self._bwd.append(fa.bwd_launches))
                 m.register_full_backward_hook(
                     lambda *_, s=site: self._add_bwd(s))
 
@@ -1610,9 +1649,7 @@ class TrainSiteCounter:
         self.counts[site]["fwd"] += self.fa.launches - self._fwd.pop()
 
     def _add_bwd(self, site: str) -> None:
-        dq, dkv = self._bwd.pop()
-        self.counts[site]["dq"] += self.fa.bwd_dq_launches - dq
-        self.counts[site]["dkv"] += self.fa.bwd_dkv_launches - dkv
+        self.counts[site]["bwd"] += self.fa.bwd_launches - self._bwd.pop()
 
 
 def selection_corpus(root: str, n_train: int, n_valid: int, n_frames: int,
@@ -1687,7 +1724,7 @@ def run_selection_training(fa) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    fa.launches = fa.bwd_launches = 0
     loop.build_model = build_and_watch
     try:
         t0 = time.perf_counter()
@@ -1698,8 +1735,7 @@ def run_selection_training(fa) -> dict:
     finally:
         loop.build_model = build_model
     launches = {"flash_attn_fwd": fa.launches,
-                "flash_attn_bwd_dq": fa.bwd_dq_launches,
-                "flash_attn_bwd_dkv": fa.bwd_dkv_launches}  # read right after
+                "flash_attn_bwd": fa.bwd_launches}  # read right after
     by_site = copy.deepcopy(sites.counts)  # the timed steps below add on
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1721,11 +1757,10 @@ def run_selection_training(fa) -> dict:
     steps = (TRAIN_VIDEOS * OBJECTS // BATCH) * 2
     valid_batches = (VALID_VIDEOS * OBJECTS // BATCH) * 2
     want = {"fwd": cfg.n_layers * (steps + valid_batches),
-            "dq": cfg.n_layers * steps, "dkv": cfg.n_layers * steps}
+            "bwd": cfg.n_layers * steps}
     if (any(by_site[s] != want for s in ATTN_SITES)
             or launches["flash_attn_fwd"] != 3 * want["fwd"]
-            or launches["flash_attn_bwd_dq"] != 3 * want["dq"]
-            or launches["flash_attn_bwd_dkv"] != 3 * want["dkv"]):
+            or launches["flash_attn_bwd"] != 3 * want["bwd"]):
         raise AssertionError(f"kernel launches by site {by_site} "
                              f"(want {want} each), totals {launches}")
 
@@ -1739,8 +1774,7 @@ def run_selection_training(fa) -> dict:
     step_ms = host_ms(step, iters=5)
     prof = profile_forward(step, kernels_of=(
         ("flash_fwd", "flash_fwd_"),  # the wgmma and tf32 kernels
-        ("flash_bwd_dq", "flash_bwd_dq_kernel"),
-        ("flash_bwd_dkv", "flash_bwd_dkv_kernel")))
+        ("flash_bwd", "flash_bwd_")))
     row = {"config": dataclasses.asdict(cfg), "corpus_s": corpus_s,
            "text_encoder_s": text_s, "train_s": train_s, "steps": steps,
            "launches": launches, "launches_by_site": by_site,
@@ -1763,10 +1797,8 @@ def run_selection_training(fa) -> dict:
             f"{prof['busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}),"
             f" {prof['kernels']} kernels; flash fwd "
             f"{prof['flash_fwd_ms']:.3f} ms ({prof['flash_fwd_share_of_busy']:.3f}),"
-            f" dq {prof['flash_bwd_dq_ms']:.3f} ms "
-            f"({prof['flash_bwd_dq_share_of_busy']:.3f}), dkv "
-            f"{prof['flash_bwd_dkv_ms']:.3f} ms "
-            f"({prof['flash_bwd_dkv_share_of_busy']:.3f}) of busy"))
+            f" bwd {prof['flash_bwd_ms']:.3f} ms "
+            f"({prof['flash_bwd_share_of_busy']:.3f}) of busy"))
     del model, text, optimizer, batch
     torch.cuda.empty_cache()
     drop_bulk(root)
@@ -1795,7 +1827,7 @@ def run_selection_small_reference(fa) -> dict:
     Pallas route) trained 2 epochs on the card and on the CPU from the same
     seeded weights and hash table: the log.txt numbers within
     SMALL_TRAIN_ATOL and equal TP/FP/FN/TN. A third run on the card with a
-    planted fault in the backward kernels' input (delta = 0, so dS lacks
+    planted fault in the backward kernel's input (delta = 0, so dS lacks
     its -delta) must break that agreement."""
     from sola_torch.models.text import HashTextEncoder
     from sola_torch.train.loop import train
@@ -1818,7 +1850,7 @@ def run_selection_small_reference(fa) -> dict:
                              "positive_weight": 1.5},
                    "dataset": copy.deepcopy(dataset),
                    "results": {"output_dir": os.path.join(root, name)}}
-        before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        before = (fa.launches, fa.bwd_launches)
         if name == "cuda_ds_without_delta":
             fa.bwd_delta = lambda out, do: torch.zeros_like(
                 honest_delta(out, do))
@@ -1831,8 +1863,8 @@ def run_selection_small_reference(fa) -> dict:
             fa.bwd_delta = honest_delta
         runs[name] = parse_train_log(os.path.join(
             root, name, "small", "mevis", "log.txt")) + (
-            tuple(a - b for a, b in zip((fa.launches, fa.bwd_dq_launches,
-                                         fa.bwd_dkv_launches), before)),)
+            tuple(a - b for a, b in zip((fa.launches, fa.bwd_launches),
+                                        before)),)
 
     def log_err(a, b):
         return (float(np.abs(np.subtract(a[0], b[0])).max())
@@ -1841,7 +1873,7 @@ def run_selection_small_reference(fa) -> dict:
     card, cpu, fault = (runs["cuda"], runs["cpu"],
                         runs["cuda_ds_without_delta"])
     if min(card[3]) == 0 or max(cpu[3]) != 0 or min(fault[3]) == 0:
-        raise AssertionError(f"small training launches (fwd, dq, dkv): card "
+        raise AssertionError(f"small training launches (fwd, bwd): card "
                              f"{card[3]}, cpu {cpu[3]}, fault {fault[3]}")
     err, fault_err = log_err(card, cpu), log_err(fault, cpu)
     if card[1] != cpu[1] or card[2] != cpu[2] or not err <= SMALL_TRAIN_ATOL:
@@ -1853,7 +1885,7 @@ def run_selection_small_reference(fa) -> dict:
                              f"-delta: log numbers within {fault_err}")
     drop_bulk(root)
     log(f"  tiny training on the card vs the CPU (2 epochs, Pallas route, "
-        f"launches fwd/dq/dkv {card[3]}): log numbers within {err:.3g} (tol "
+        f"launches fwd/bwd {card[3]}): log numbers within {err:.3g} (tol "
         f"{SMALL_TRAIN_ATOL}), TP/FP/FN/TN equal {card[1]}; with dS without "
         f"-delta planted the log differs by {fault_err:.4g} (rejected)")
     return {"max_abs_log_err": err, "tol": SMALL_TRAIN_ATOL,
@@ -1948,24 +1980,23 @@ def main() -> None:
         "training_shapes": [{"shape": r["shape"], **r["fwd"],
                              "ms_without_dropout": r["fwd_nodrop_ms"]}
                             for r in training_kernels["rows"]]}]
-    for kern, line in (("dq", 117), ("dkv", 159)):
-        grads = ("dq",) if kern == "dq" else ("dk", "dv")
-        kernels.append({
-            "name": f"flash_attn_bwd_{kern}", "route": "cuda",
-            "source": "sola_torch/csrc/flash_attn_bwd.cu",
-            "replaces": f"sola_tpu/ops/flash_attention.py:{line}",
-            "launches": training["launches"][f"flash_attn_bwd_{kern}"],
-            "max_abs_err": max(r[f"{g}_{t}"]["max_abs_err"]
-                               for r in training_kernels["rows"]
-                               for g in grads for t in ("nodrop", "drop")),
-            **{k: thead[kern][k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")},
-            "at": f"{thead['shape']}, dropout {SEL_RATE}",
-            "plain_and_library_cover": "dQ, dK and dV together",
-            "launches_by_path": {
-                "train": training["launches"][f"flash_attn_bwd_{kern}"]},
-            "shapes": [{"shape": r["shape"], **r[kern]}
-                       for r in training_kernels["rows"]]})
+    kernels.append({
+        "name": "flash_attn_bwd", "route": "cuda",
+        "source": "sola_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "sola_tpu/ops/flash_attention.py:117 and "
+                    "sola_tpu/ops/flash_attention.py:159",
+        "launches": training["launches"]["flash_attn_bwd"],
+        "max_abs_err": max(r[f"{g}_{t}"]["max_abs_err"]
+                           for r in training_kernels["rows"]
+                           for g in ("dq", "dk", "dv")
+                           for t in ("nodrop", "drop")),
+        **{k: thead["bwd"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "device_ms")},
+        "at": f"{thead['shape']}, dropout {SEL_RATE}",
+        "launches_by_path": {"train": training["launches"]["flash_attn_bwd"]},
+        "shapes": [{"shape": r["shape"], "plan": r["plan"], **r["bwd"]}
+                   for r in training_kernels["rows"]]})
     kernels.append({
         "name": "ms_deform_attn_fwd", "route": "cuda",
         "source": "sola_torch/csrc/ms_deform_attn_fwd.cu",

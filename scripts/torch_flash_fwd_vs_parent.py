@@ -4,19 +4,26 @@ other, this, this, other, on the same seeded inputs. Needs one CUDA card.
 
     python3 scripts/torch_flash_fwd_vs_parent.py OTHER_DIR [--out FILE]
     python3 scripts/torch_flash_fwd_vs_parent.py OTHER_DIR --kernel deform
+    python3 scripts/torch_flash_fwd_vs_parent.py OTHER_DIR --kernel flash_bwd
 
 ``--kernel flash_fwd`` (the default) times ``flash_attention._launch`` at
 every shape of chip_smoke.py's phase 2 and phase 8. ``--kernel deform``
 times ``deformable_interp._launch`` at every shape of phase 5, and checks
 that the two checkouts' outputs are ``torch.equal`` at each (the script
-exits nonzero if one is not).
+exits nonzero if one is not). ``--kernel flash_bwd`` times
+``flash_attention._launch_bwd`` (delta, then the backward kernels) at
+every phase-8 shape with and without dropout, and holds each checkout's
+dQ, dK and dV within phase 8's limits of the plain version (a turn that
+breaks them fails, and the script exits nonzero).
 
 Each turn is a subprocess that makes the same seeded inputs, imports
 ``sola_torch`` from one checkout, builds its library and times the kernel's
 launch with CUDA events (chip_smoke.cuda_ms). Prints a table (ms of each
 checkout, the mean of its two turns) after the card's name and power
 limit, and writes every turn to --out (default
-chiprun_out/flash_fwd_vs_parent.json or chiprun_out/deform_vs_parent.json).
+chiprun_out/<kernel>_vs_parent.json). ``deform`` and ``flash_bwd`` also
+time the kernels alone (``device_ms``, torch.profiler: per call, the sum of
+the kernels whose name holds ``ms_deform`` or ``flash_bwd_``).
 """
 
 from __future__ import annotations
@@ -100,10 +107,59 @@ def deform_worker(root: str, save: str) -> None:
     print(json.dumps(times))
 
 
+def bwd_worker(root: str) -> None:
+    """Times one checkout's backward (``_launch_bwd``) by CUDA events over
+    calls (ms) and its kernels alone (device_ms); raises if its gradients
+    break phase 8's limits; prints {shape: {"ms": .., "device_ms": ..,
+    "err_over_tol": ..}} as its last line (the largest of the max and RMS
+    errors of dq, dk and dv over their limits)."""
+    import torch
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    cases = [(name, dtype, b, cs.SEL_HEADS, lq, lk, cs.SEL_D, mask)
+             for name, _, dtype, b, lq, lk, mask
+             in cs.selection_attention_cases(gen)]
+    cases += cs.backward_check_cases(gen)
+    runs = []  # (name, q, k, v, do, mask)
+    for name, dtype, b, h, lq, lk, d, mask in cases:
+        runs.append((name, *(torch.randn(b, h, n, d, generator=gen).cuda()
+                             .to(dtype) for n in (lq, lk, lk, lq)), mask))
+    sys.path.insert(0, root)
+    from sola_torch.ops import flash_attention as fa
+    assert os.path.dirname(fa.__file__).startswith(os.path.abspath(root))
+    times, broken = {}, []
+    for name, q, k, v, do, mask in runs:
+        for rate in (cs.SEL_RATE, 0.0):
+            seed = cs.SEL_SEED if rate else None
+            out, lse = fa._launch(q, k, v, mask, rate, seed)
+            refs = fa.attention_bwd_reference(q, k, v, mask, out, lse, do,
+                                              rate, seed)
+            grads = fa._launch_bwd(q, k, v, mask, out, lse, do, rate, seed)
+            errs = [cs.out_errors(g, r.float(), q.dtype)
+                    for g, r in zip(grads, refs)]
+            if cs.grad_limits_fail(grads, refs, q.dtype):
+                broken.append((name, rate, errs))
+
+            def fn():
+                return fa._launch_bwd(q, k, v, mask, out, lse, do, rate,
+                                      seed)
+            key = f"{name}_dropout" if rate else name
+            times[key] = {
+                "ms": cs.cuda_ms(fn, 20),
+                "device_ms": cs.device_ms(fn, 20, "flash_bwd_")
+                or float("nan"),
+                "err_over_tol": max(max(e / t, r / rt)
+                                    for e, t, r, rt in errs)}
+    if broken:
+        raise AssertionError(f"gradients break phase 8's limits: {broken}")
+    print(json.dumps(times))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="the other checkout (e.g. the parent's)")
-    ap.add_argument("--kernel", choices=("flash_fwd", "deform"),
+    ap.add_argument("--kernel", choices=("flash_fwd", "deform", "flash_bwd"),
                     default="flash_fwd")
     ap.add_argument("--out", help="JSON of every turn (default "
                     "chiprun_out/<kernel>_vs_parent.json)")
@@ -113,6 +169,8 @@ def main() -> None:
     if args.worker:
         if args.kernel == "deform":
             deform_worker(args.worker, args.save)
+        elif args.kernel == "flash_bwd":
+            bwd_worker(args.worker)
         else:
             worker(args.worker)
         return
@@ -145,8 +203,11 @@ def main() -> None:
         rows = []
         for shape, metrics in turns[0]["ms"].items():
             row, line = {"shape": shape}, f"{shape:>28}"
-            for key in metrics:  # ms, and device_ms for deform
+            for key in metrics:  # ms; device_ms, err_over_tol if measured
                 turn_ms = [t["ms"][shape][key] for t in turns]
+                if key == "err_over_tol":
+                    row["err_over_tol"] = turn_ms
+                    continue
                 mean = {tree: sum(v for t, v in zip(turns, turn_ms)
                                   if t["tree"] == tree) / 2
                         for tree in ("other", "this")}

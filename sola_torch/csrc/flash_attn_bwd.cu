@@ -1,46 +1,74 @@
-// Flash-attention backward for Hopper (sm_90a): the dQ kernel and the dK/dV
-// kernel, bound to Python through a plain C interface
-// (sola_torch/ops/flash_attention.py loads them with ctypes).
+// Flash-attention backward for Hopper (sm_90a): one fused kernel that
+// writes dQ, dK and dV, bound to Python through a plain C interface
+// (sola_torch/ops/flash_attention.py loads it with ctypes).
 //
-// Replaces sola_tpu/ops/flash_attention.py::_attn_bwd_dq_kernel and
-// ::_attn_bwd_dkv_kernel (launched by _core_bwd through pl.pallas_call).
-// They compute the same functions, from the forward's saved logsumexp
-// (lse) and delta = rowsum(dO * O) of the forward's own (dropped) output:
+// Replaces sola_tpu/ops/flash_attention.py::_attn_bwd_dq_kernel (:117) and
+// ::_attn_bwd_dkv_kernel (:159), launched by _core_bwd through two
+// pl.pallas_calls. It computes both their functions in one pass, from the
+// forward's saved logsumexp (lse) and delta = rowsum(dO * O) of the
+// forward's own (dropped) output:
 //   P  = exp(S * scale - lse)           S = Q K^T; masked keys score -1e30
 //   dP = (dO V^T) * keep * inv_keep     (dropout: the forward's mask)
 //   dS = P * (dP - delta) * scale
 //   dQ = dS K        dK = dS^T Q        dV = (P * keep * inv_keep)^T dO
 // with the conventions of the port's forward (flash_attn_fwd.cu): a key
-// past Lk is excluded, and the keep mask is the counter hash of (seed,
-// batch*head, global query, global key), so every kernel regenerates it
-// from the seed whatever its tiles. A masked key gets P = 0 exactly, so its
-// dK and dV rows are exactly zero, as are the dropped entries of P.
+// past Lk is excluded, a batch entry with no valid key lets every key take
+// part (each scoring -1e30), and the keep mask is the counter hash of
+// (seed, batch*head, global query, original key index), so the kernel
+// regenerates it from the seed whatever its tiles. A masked key gets P = 0
+// exactly, so its dK and dV rows are exactly zero; they are written as
+// zeros without being computed.
 //
-// What bounds it on an H100: at the selection model's training shapes
-// (head dim 128, fp32; obj_attn 512 x 64 x 64, motion_attn 4096 x 8 x 8,
-// object2lang_attn 64 x 512 x 128 as (batch*heads) x Lq x Lk) the dQ pass
-// does 6 and the dK/dV pass 8 FLOPs per (q, k, d): at object2lang_attn,
-// the largest, 3.2 and 4.3 GFLOP against some 60 MB of Q, K, V, dO, lse,
-// delta and gradients, about 55-70 FLOP per byte. Against float32's
-// 67 TFLOP/s outside the tensor cores that is compute-bound (48 and 64 us);
-// motion_attn and obj_attn are smaller still and their bytes bound them.
+// What bounds it on an H100: at the selection model's training sites
+// (head dim 128, fp32, as (batch*heads) x Lq x Lk: obj_attn 512 x 64 x 64
+// with 40 valid keys, motion_attn 4096 x 8 x 8 with 5-8, object2lang_attn
+// 64 x 512 x 128 with 38-52) the fused work is 10 FLOPs per (query, valid
+// key, d) against Q, K, V, dO, dQ, dK and dV moved once: 0.035, 0.035 and
+// 0.020 ms of bytes at 3.35 TB/s, above the operations at the tensor
+// cores' 3xTF32 rate, so bytes bound all three. In fp32 FMAs (67 TFLOP/s),
+// the arithmetic this kernel does, object2lang_attn's 1.9 GFLOP take
+// 0.028 ms and come close to its bytes.
 //
-// What this simple design does about that: nothing clever yet, it is right
-// first. dQ: one block of 256 threads per (batch*head, 64-query tile) and a
-// loop over 32-key tiles (the TPU's sequential k grid axis), which
-// recomputes S and dP for the tile with plain fp32 FMAs from tiles staged
-// in shared memory (bf16 inputs are widened to fp32 there), builds dS in
-// shared memory, and adds dS K to a dQ accumulator held in registers. dK/dV:
-// one block per (batch*head, 32-key tile) looping over 64-query tiles, with
-// dK and dV in registers, so no atomics and a deterministic result. Key
-// tiles that the mask empties are skipped (dQ) or written as zeros (dK/dV)
-// when the batch entry has a valid key. No tensor cores, TMA or pipelining:
-// the tiles are small and lopsided at these shapes (motion_attn's 8 x 8
-// fills 1/32 of a 64 x 32 tile), so the waste of the fixed tiles, not the
-// arithmetic, is what a later version has to remove.
+// What the design does about it. The dQ / dK-dV pair it replaces ran two
+// passes that each recomputed S and dP, fixed 64 x 32 tiles that
+// motion_attn's 8 x 8 heads filled to 1/32, one shared-memory load per FMA,
+// and blocks for key tiles that the mask emptied. Here:
+// - One pass. A block owns a chunk of a head's keys at a time (64 key slots
+//   at D <= 128, 32 at D <= 256, so dK and dV fit the registers) and walks
+//   the head's query tiles of 64 rows. Each tile recomputes S and dP once,
+//   forms P and dS (transposed) in shared memory, adds P^T dO and dS^T Q to
+//   dK and dV in registers, and forms the tile's dQ = dS K. Where the
+//   head's keys fit one chunk (every selection site) dQ is complete and is
+//   written once in the output type; otherwise the chunks run in order in
+//   the same block and carry dQ in an fp32 workspace the wrapper allocates,
+//   the last one converting it. No atomics: every sum runs in a fixed order.
+// - Only the keys the mask leaves. Warp 0 lists the batch entry's valid
+//   keys (ballots over the mask row) a chunk at a time in shared memory, in
+//   ascending order; only those keys are staged, and each keeps its
+//   original index for the hash and for the dK/dV store.
+// - Small heads packed. When Lq and Lk are small (motion_attn's 8 x 8), a
+//   block takes G consecutive heads of one batch entry (which share its
+//   mask row): the tile's rows are G runs of RH rows and the chunk's key
+//   slots G runs of KH slots. Every micro-tile lies inside one head's run,
+//   and a thread computes only the micro-tiles of its own head's diagonal
+//   block, so no product crosses heads.
+// - Register-tiled products from float4 loads. S and dP: a thread owns 4
+//   rows x 4 key slots (strided by 16), reading 4 head-dim values of each
+//   operand at once (8 FMAs a 16-byte load). dK and dV: 4 key slots x 8
+//   columns (2 x 16 at D <= 256), reading 4 rows of P^T / dS^T at once
+//   (about 11 FMAs a load). dQ: 4 rows x 8 columns a pass. Row strides of
+//   D + 4 and 68 floats keep each quarter-warp's 16-byte loads on distinct
+//   banks.
+// - Staging overlapped with the products. fp32 tiles arrive by 16-byte
+//   cp.async (rows past Lq zero-filled). With one 64-row buffer for Q and
+//   dO (two would not fit beside K, V, P and dS at D 128: 237 KB), the next
+//   query tile's copy is issued as soon as dK and dV stop reading Q and dO,
+//   and lands while the block computes the current tile's dQ. bf16 inputs
+//   are widened to fp32 on staging through registers at the same point.
+//   Shared memory: 170,768 bytes at D 128, 217,744 at D 256; one block of
+//   256 threads an SM.
 //
-// Head dims: any D <= 256 that is a multiple of 8; the register
-// accumulators are sized for D <= 128 or D <= 256.
+// Head dims: any D <= 256 that is a multiple of 8; any Lq and Lk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,410 +83,556 @@ using sola_dropout::Dropout;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kBQ = 64;   // query rows per tile
-constexpr int kBK = 32;   // key rows per tile
-constexpr int kLdS = kBK + 1;  // leading dim of the (kBQ, kBK) score tiles
+constexpr int kRows = 64;         // query rows of a tile, all packed heads
+constexpr int kLdT = kRows + 4;   // leading dim of the transposed P, dS
 constexpr float kMaskedScore = -1e30f;
 
-__device__ inline float to_float(float x) { return x; }
+// key slots of a chunk, and each thread's share of the products, by the
+// accumulator width DMAX (128 or 256)
+template <int DMAX>
+struct Tiling {
+  static constexpr int kKeys = DMAX <= 128 ? 64 : 32;
+  static constexpr int kScoreCols = kKeys / 16;    // S/dP key slots a thread
+  static constexpr int kKeysPerThread = kKeys / 16;  // dK/dV key slots
+  static constexpr int kColVecs = DMAX / 64;       // float4 column groups
+  static constexpr int kDqPasses = DMAX / 128;     // dQ column passes
+};
+
+__host__ __device__ inline size_t smem_bytes(int D, int keys) {
+  const size_t ld = D + 4;
+  return sizeof(float) * ((2 * kRows + 2 * keys) * ld + 2 * keys * kLdT +
+                          2 * kRows) +
+         sizeof(int) * keys;
+}
+
 __device__ inline float to_float(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ inline T from_float(float x);
-template <> __device__ inline float from_float<float>(float x) { return x; }
-template <> __device__ inline bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Stage `rows_valid` rows of a (rows, D) row-major tile as fp32 in shared
-// memory with leading dim ld = D + 1 (odd, so a column read by 32 lanes on
-// 32 rows hits 32 banks); rows past rows_valid are zero.
+__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ inline void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ inline float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ inline float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ inline float dot4(const float4& a, const float4& b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// 16 bytes of a row of T into fp32 shared memory: 4 floats by cp.async, or
+// 8 bf16 loaded and widened; zeros when !valid
 template <typename T>
-__device__ inline void stage_rows(float* dst, const T* src, int rows_valid,
-                                  int rows, int D) {
-  const int ld = D + 1;
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i % D;
-    dst[r * ld + c] = r < rows_valid ? to_float(src[i]) : 0.0f;
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+template <typename T>
+__device__ inline void stage16(float* dst, const T* src, bool valid) {
+  if constexpr (sizeof(T) == 4) {
+    cp_async16(dst, src, valid);
+  } else {
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (valid) raw = *reinterpret_cast<const uint4*>(src);
+    const bf16* h = reinterpret_cast<const bf16*>(&raw);
+    *reinterpret_cast<float4*>(dst) = make_float4(
+        to_float(h[0]), to_float(h[1]), to_float(h[2]), to_float(h[3]));
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(
+        to_float(h[4]), to_float(h[5]), to_float(h[6]), to_float(h[7]));
   }
 }
 
-// Shared-memory floats of the stage buffers: two (kBQ, D) query-side tiles
-// (Q, dO), two (kBK, D) key-side tiles (K, V), `n_score` (kBQ, kBK) tiles,
-// lse and delta; then kBK mask bytes.
-__host__ __device__ inline size_t smem_bytes(int D, int n_score) {
-  const size_t floats = static_cast<size_t>(2 * kBQ + 2 * kBK) * (D + 1) +
-                        static_cast<size_t>(n_score) * kBQ * kLdS + 2 * kBQ;
-  return floats * sizeof(float) + kBK;
-}
-
-// Does batch entry `mb` (null: no mask) have a valid key at all? If so, a
-// key tile that the mask empties contributes exactly nothing and is
-// skipped; otherwise every tile takes part, as in the forward. Uniform
-// across the block.
-__device__ inline bool skip_masked_tiles(const unsigned char* mb, int Lk) {
-  int any_valid = 0;
-  for (int i = threadIdx.x; mb && i < Lk; i += kThreads) any_valid |= mb[i];
-  return mb != nullptr && __syncthreads_or(any_valid);
-}
-
-__device__ inline bool tile_has_valid_key(const unsigned char* mb, int k0,
-                                          int kv) {
-  int valid = 0;
-  for (int i = threadIdx.x; i < kv; i += kThreads) valid |= mb[k0 + i];
-  return __syncthreads_or(valid);
-}
-
-template <typename T, int DMAX, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
-                    const unsigned char* __restrict__ mask,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int H, int Lq, int Lk, int D, float scale, uint32_t seed,
-                    uint32_t keep_thresh, float inv_keep) {
-  constexpr int kGroups = kThreads / kBQ;  // 4 threads share a query row
-  constexpr int kSPer = kBK / kGroups;     // score columns per thread
-  constexpr int kDPer = DMAX / kGroups;    // dQ columns per thread
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;
-  float* sQ = smem;
-  float* sDO = sQ + kBQ * ld;
-  float* sK = sDO + kBQ * ld;
-  float* sV = sK + kBK * ld;
-  float* sDS = sV + kBK * ld;
-  float* sLse = sDS + kBQ * kLdS;
-  float* sDelta = sLse + kBQ;
-  unsigned char* sMask = reinterpret_cast<unsigned char*>(sDelta + kBQ);
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int qv = min(kBQ, Lq - q0);
-  // thread roles: a warp holds 32 consecutive rows and one column group,
-  // so row reads hit 32 banks and column reads broadcast
-  const int row = threadIdx.x % kBQ;
-  const int grp = threadIdx.x / kBQ;
-  const size_t row0 = static_cast<size_t>(bh) * Lq + q0;
-  const T* kb = k + static_cast<size_t>(bh) * Lk * D;
-  const T* vb = v + static_cast<size_t>(bh) * Lk * D;
-  const unsigned char* mb =
-      mask ? mask + static_cast<size_t>(bh / H) * Lk : nullptr;
-  Dropout drop{0u, keep_thresh, inv_keep};
-  if constexpr (kDrop) drop.for_head(seed, bh);
-
-  stage_rows(sQ, q + row0 * D, qv, kBQ, D);
-  stage_rows(sDO, dout + row0 * D, qv, kBQ, D);
-  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-    // a row past Lq gets P = exp(s - inf) = 0
-    sLse[i] = i < qv ? lse[row0 + i] : INFINITY;
-    sDelta[i] = i < qv ? delta[row0 + i] : 0.0f;
-  }
-  const bool skip = skip_masked_tiles(mb, Lk);
-
-  float acc[kDPer];
-#pragma unroll
-  for (int m = 0; m < kDPer; ++m) acc[m] = 0.0f;
-
-  for (int k0 = 0; k0 < Lk; k0 += kBK) {
-    const int kv = min(kBK, Lk - k0);
-    if (skip && !tile_has_valid_key(mb, k0, kv)) continue;
-    __syncthreads();  // the previous tile's sK / sDS are no longer read
-    stage_rows(sK, kb + static_cast<size_t>(k0) * D, kv, kBK, D);
-    stage_rows(sV, vb + static_cast<size_t>(k0) * D, kv, kBK, D);
-    for (int i = threadIdx.x; i < kBK; i += kThreads) {
-      sMask[i] = (mb && i < kv) ? (mb[k0 + i] != 0) : 1;
-    }
-    __syncthreads();
-
-    // S = Q K^T and dO V^T for this thread's row and columns grp + 4j
-    float s[kSPer], dp[kSPer];
-#pragma unroll
-    for (int j = 0; j < kSPer; ++j) s[j] = dp[j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = sQ[row * ld + d];
-      const float od = sDO[row * ld + d];
-#pragma unroll
-      for (int j = 0; j < kSPer; ++j) {
-        const int c = grp + kGroups * j;
-        s[j] = fmaf(qd, sK[c * ld + d], s[j]);
-        dp[j] = fmaf(od, sV[c * ld + d], dp[j]);
-      }
-    }
-    const float lse_r = sLse[row];
-    const float delta_r = sDelta[row];
-#pragma unroll
-    for (int j = 0; j < kSPer; ++j) {
-      const int c = grp + kGroups * j;
-      float p = 0.0f;  // a key past Lk is excluded
-      if (c < kv) p = expf((sMask[c] ? s[j] * scale : kMaskedScore) - lse_r);
-      float dpj = dp[j];
-      if constexpr (kDrop) dpj *= drop.factor(q0 + row, k0 + c);
-      sDS[row * kLdS + c] = p * (dpj - delta_r) * scale;
-    }
-    __syncthreads();
-
-    // dQ[row, grp + 4m] += sum_c dS[row, c] K[c, grp + 4m]
-    for (int c = 0; c < kv; ++c) {
-      const float ds = sDS[row * kLdS + c];
-#pragma unroll
-      for (int m = 0; m < kDPer; ++m) {
-        const int col = grp + kGroups * m;
-        if (col < D) acc[m] = fmaf(ds, sK[c * ld + col], acc[m]);
-      }
-    }
-  }
-
-  if (row < qv) {
-    T* dst = dq + (row0 + row) * D;
-#pragma unroll
-    for (int m = 0; m < kDPer; ++m) {
-      const int col = grp + kGroups * m;
-      if (col < D) dst[col] = from_float<T>(acc[m]);
-    }
+// 4 values rounded once into T
+template <typename T>
+__device__ inline void store4(T* dst, float4 v) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(dst) = v;
+  } else {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 raw;
+    raw.x = *reinterpret_cast<uint32_t*>(&lo);
+    raw.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(dst) = raw;
   }
 }
 
-template <typename T, int DMAX, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
-                     const unsigned char* __restrict__ mask,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Lq, int Lk, int D,
-                     float scale, uint32_t seed, uint32_t keep_thresh,
-                     float inv_keep) {
-  constexpr int kGroups = kThreads / kBK;  // 8 threads share a key row
-  constexpr int kSPer = kBQ / kGroups;     // score rows per thread
-  constexpr int kDPer = DMAX / kGroups;    // dK / dV columns per thread
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;
-  float* sQ = smem;
-  float* sDO = sQ + kBQ * ld;
-  float* sK = sDO + kBQ * ld;
-  float* sV = sK + kBK * ld;
-  float* sP = sV + kBK * ld;
-  float* sDS = sP + kBQ * kLdS;
-  float* sLse = sDS + kBQ * kLdS;
-  float* sDelta = sLse + kBQ;
-  unsigned char* sMask = reinterpret_cast<unsigned char*>(sDelta + kBQ);
-
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kBK;
-  const int kv = min(kBK, Lk - k0);
-  // thread roles: a warp holds the tile's 32 keys and one row/column group
-  const int key = threadIdx.x % kBK;
-  const int grp = threadIdx.x / kBK;
-  const size_t key0 = static_cast<size_t>(bh) * Lk + k0;
-  const T* qb = q + static_cast<size_t>(bh) * Lq * D;
-  const T* ob = dout + static_cast<size_t>(bh) * Lq * D;
-  const unsigned char* mb =
-      mask ? mask + static_cast<size_t>(bh / H) * Lk : nullptr;
-
-  if (skip_masked_tiles(mb, Lk) && !tile_has_valid_key(mb, k0, kv)) {
-    // every key of the tile is masked: P = 0 there, so dK = dV = 0
-    for (int i = threadIdx.x; i < kv * D; i += kThreads) {
-      dk[key0 * D + i] = from_float<T>(0.0f);
-      dv[key0 * D + i] = from_float<T>(0.0f);
-    }
-    return;
-  }
-  Dropout drop{0u, keep_thresh, inv_keep};
-  if constexpr (kDrop) drop.for_head(seed, bh);
-
-  stage_rows(sK, k + key0 * D, kv, kBK, D);
-  stage_rows(sV, v + key0 * D, kv, kBK, D);
-  for (int i = threadIdx.x; i < kBK; i += kThreads) {
-    sMask[i] = (mb && i < kv) ? (mb[k0 + i] != 0) : 1;
-  }
-
-  float dk_acc[kDPer], dv_acc[kDPer];
-#pragma unroll
-  for (int m = 0; m < kDPer; ++m) dk_acc[m] = dv_acc[m] = 0.0f;
-
-  for (int q0 = 0; q0 < Lq; q0 += kBQ) {
-    const int qv = min(kBQ, Lq - q0);
-    const size_t row0 = static_cast<size_t>(bh) * Lq + q0;
-    __syncthreads();  // the previous tile's sQ / sDO / sP / sDS are read
-    stage_rows(sQ, qb + static_cast<size_t>(q0) * D, qv, kBQ, D);
-    stage_rows(sDO, ob + static_cast<size_t>(q0) * D, qv, kBQ, D);
-    for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-      sLse[i] = i < qv ? lse[row0 + i] : INFINITY;
-      sDelta[i] = i < qv ? delta[row0 + i] : 0.0f;
-    }
-    __syncthreads();
-
-    // S^T and (dO V^T)^T for this thread's key and rows grp + 8i
-    float s[kSPer], dp[kSPer];
-#pragma unroll
-    for (int i = 0; i < kSPer; ++i) s[i] = dp[i] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = sK[key * ld + d];
-      const float vd = sV[key * ld + d];
-#pragma unroll
-      for (int i = 0; i < kSPer; ++i) {
-        const int r = grp + kGroups * i;
-        s[i] = fmaf(sQ[r * ld + d], kd, s[i]);
-        dp[i] = fmaf(sDO[r * ld + d], vd, dp[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kSPer; ++i) {
-      const int r = grp + kGroups * i;
-      float p = 0.0f;  // a key past Lk is never written; keep it finite
-      if (key < kv) {
-        p = expf((sMask[key] ? s[i] * scale : kMaskedScore) - sLse[r]);
-      }
-      float pv = p;
-      float dpi = dp[i];
-      if constexpr (kDrop) {
-        const float f = drop.factor(q0 + r, k0 + key);
-        pv = p * f;
-        dpi = dpi * f;
-      }
-      sP[r * kLdS + key] = pv;
-      sDS[r * kLdS + key] = p * (dpi - sDelta[r]) * scale;
-    }
-    __syncthreads();
-
-    // dV[key, col] += sum_r P[r, key] dO[r, col]; dK likewise with dS, Q
-    for (int r = 0; r < qv; ++r) {
-      const float pv = sP[r * kLdS + key];
-      const float ds = sDS[r * kLdS + key];
-#pragma unroll
-      for (int m = 0; m < kDPer; ++m) {
-        const int col = grp + kGroups * m;
-        if (col < D) {
-          dv_acc[m] = fmaf(pv, sDO[r * ld + col], dv_acc[m]);
-          dk_acc[m] = fmaf(ds, sQ[r * ld + col], dk_acc[m]);
-        }
-      }
-    }
-  }
-
-  if (key < kv) {
-    T* dk_row = dk + (key0 + key) * D;
-    T* dv_row = dv + (key0 + key) * D;
-#pragma unroll
-    for (int m = 0; m < kDPer; ++m) {
-      const int col = grp + kGroups * m;
-      if (col < D) {
-        dk_row[col] = from_float<T>(dk_acc[m]);
-        dv_row[col] = from_float<T>(dv_acc[m]);
-      }
-    }
-  }
-}
-
-struct Args {
+struct Params {
   const void *q, *k, *v;
   const unsigned char* mask;
   const void* dout;
   const float *lse, *delta;
-  void *g0, *g1;  // dQ; or dK, dV
+  void *dq, *dk, *dv;
+  float* dq_ws;  // (BH, Lq, D) fp32 when Lk > KH, else null
   int BH, H, Lq, Lk, D;
+  int G, RH, KH;  // heads a block, rows a head in a tile, key slots a chunk
   float scale;
   uint32_t seed, keep_thresh;
   float inv_keep;
 };
 
-template <typename T, int DMAX, bool kDrop>
-int launch_dq(const Args& a, cudaStream_t stream) {
-  auto kern = flash_bwd_dq_kernel<T, DMAX, kDrop>;
-  const size_t bytes = smem_bytes(a.D, 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Lq + kBQ - 1) / kBQ, a.BH);
-  kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.mask, static_cast<const T*>(a.dout),
-      a.lse, a.delta, static_cast<T*>(a.g0), a.H, a.Lq, a.Lk, a.D, a.scale,
-      a.seed, a.keep_thresh, a.inv_keep);
-  return static_cast<int>(cudaGetLastError());
+// Warp 0: the next `want` keys that take part (mb null: every key), from
+// the scan position *next, into sKey in ascending order; *next moves past
+// the last one taken.
+__device__ inline void collect_keys(const unsigned char* mb, int Lk, int want,
+                                    int* sKey, int* next) {
+  const int lane = threadIdx.x & 31;
+  int pos = *next;
+  int n = 0;
+  while (n < want && pos < Lk) {
+    const int key = pos + lane;
+    const bool ok = key < Lk && (mb == nullptr || mb[key] != 0);
+    const unsigned bal = __ballot_sync(~0u, ok);
+    const int rank = __popc(bal & ((1u << lane) - 1u));
+    if (ok && n + rank < want) sKey[n + rank] = key;
+    const int got = __popc(bal);
+    if (n + got > want) {
+      // the chunk ends inside this window: the next starts at the first
+      // key not taken
+      const unsigned rest = __ballot_sync(~0u, ok && n + rank == want);
+      pos += __ffs(rest) - 1;
+      n = want;
+    } else {
+      pos += 32;
+      n += got;
+    }
+  }
+  if (lane == 0) *next = pos;
+}
+
+// Q, dO, lse and delta rows of query tile q0 for the block's G heads:
+// row g * RH + i is query q0 + i of head bh0 + g; rows past Lq are zero
+// (lse +inf, so P = 0 there).
+template <typename T>
+__device__ inline void stage_tile(float* sQ, float* sDO, float* sLse,
+                                  float* sDelta, const Params& p, int bh0,
+                                  int q0) {
+  const T* q = static_cast<const T*>(p.q);
+  const T* dout = static_cast<const T*>(p.dout);
+  const int D = p.D, ld = D + 4, vpr = D / kVec<T>;
+  const int rows = p.G * p.RH;
+  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
+    const int r = i / vpr;
+    const int c = (i - r * vpr) * kVec<T>;
+    const int g = r / p.RH;
+    const int qi = q0 + r - g * p.RH;
+    const bool ok = qi < p.Lq;
+    const size_t off =
+        (static_cast<size_t>(bh0 + g) * p.Lq + (ok ? qi : 0)) * D + c;
+    stage16<T>(sQ + r * ld + c, q + off, ok);
+    stage16<T>(sDO + r * ld + c, dout + off, ok);
+  }
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const int g = r / p.RH;
+    const int qi = q0 + r - g * p.RH;
+    if (qi < p.Lq) {
+      const size_t row = static_cast<size_t>(bh0 + g) * p.Lq + qi;
+      cp_async4(sLse + r, p.lse + row);
+      cp_async4(sDelta + r, p.delta + row);
+    } else {
+      sLse[r] = INFINITY;
+      sDelta[r] = 0.0f;
+    }
+  }
+}
+
+// K and V rows of the chunk's listed keys: slot g * KH + j is key sKey[j]
+// of head bh0 + g
+template <typename T>
+__device__ inline void stage_keys(float* sK, float* sV, const int* sKey,
+                                  const Params& p, int bh0, int nvc) {
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const int D = p.D, ld = D + 4, vpr = D / kVec<T>;
+  for (int i = threadIdx.x; i < p.G * nvc * vpr; i += kThreads) {
+    const int row = i / vpr;
+    const int c = (i - row * vpr) * kVec<T>;
+    const int g = row / nvc;
+    const int j = row - g * nvc;
+    const size_t off =
+        (static_cast<size_t>(bh0 + g) * p.Lk + sKey[j]) * D + c;
+    const int slot = g * p.KH + j;
+    stage16<T>(sK + slot * ld + c, k + off, true);
+    stage16<T>(sV + slot * ld + c, v + off, true);
+  }
 }
 
 template <typename T, int DMAX, bool kDrop>
-int launch_dkv(const Args& a, cudaStream_t stream) {
-  auto kern = flash_bwd_dkv_kernel<T, DMAX, kDrop>;
-  const size_t bytes = smem_bytes(a.D, 2);
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_kernel(const Params p) {
+  using Tl = Tiling<DMAX>;
+  constexpr int KC = Tl::kKeys;
+  constexpr int NJ = Tl::kScoreCols;
+  constexpr int KPT = Tl::kKeysPerThread;
+  constexpr int CV = Tl::kColVecs;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int sNext;  // scan position of the next chunk's keys
+
+  const int D = p.D, ld = D + 4;
+  const int G = p.G, RH = p.RH, KH = p.KH;
+  float* sQ = smem;
+  float* sDO = sQ + kRows * ld;
+  float* sK = sDO + kRows * ld;
+  float* sV = sK + KC * ld;
+  float* sPt = sV + KC * ld;    // P^T (dropped): [key slot][row]
+  float* sDSt = sPt + KC * kLdT;  // dS^T: [key slot][row]
+  float* sLse = sDSt + KC * kLdT;
+  float* sDelta = sLse + kRows;
+  int* sKey = reinterpret_cast<int*>(sDelta + kRows);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int bh0 = blockIdx.x * G;
+  const unsigned char* mb =
+      p.mask ? p.mask + static_cast<size_t>(bh0 / p.H) * p.Lk : nullptr;
+
+  // the batch entry's valid keys (every warp counts for itself)
+  int nvalid = p.Lk;
+  if (mb) {
+    nvalid = 0;
+    for (int base = 0; base < p.Lk; base += 32) {
+      const int key = base + lane;
+      nvalid += __popc(__ballot_sync(~0u, key < p.Lk && mb[key] != 0));
+    }
+  }
+  const bool all_masked = mb != nullptr && nvalid == 0;
+  const unsigned char* listed = all_masked ? nullptr : mb;  // null: all
+  const int nkeys = all_masked ? p.Lk : nvalid;
+
+  // masked keys' dK and dV rows: exactly zero, not computed
+  if (listed) {
+    const int vpr = D / 4;
+    for (int i = tid; i < G * p.Lk * vpr; i += kThreads) {
+      const int row = i / vpr;  // g * Lk + key
+      const int key = row % p.Lk;
+      if (listed[key]) continue;
+      const size_t off = (static_cast<size_t>(bh0) * p.Lk + row) * D +
+                         (i - row * vpr) * 4;
+      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      store4<T>(static_cast<T*>(p.dk) + off, z);
+      store4<T>(static_cast<T*>(p.dv) + off, z);
+    }
+  }
+
+  // thread roles. S/dP and dQ: rows 4*hi .. 4*hi + 3 of the tile (one
+  // head's run); S/dP key slots lo + 16 j; dQ columns 4*lo + 64 m.
+  // dK/dV: key slots KPT*hi .. + KPT - 1, columns 4*lo + 64 m.
+  const int hi = tid >> 4;
+  const int lo = tid & 15;
+  const int r0 = 4 * hi;
+  const bool rows_live = r0 < G * RH;
+  const int rhead = rows_live ? r0 / RH : 0;
+  const int rloc = r0 - rhead * RH;  // first row's query within its tile
+  const int c0 = KPT * hi;
+  const bool keys_live = c0 < G * KH;
+  const int khead = keys_live ? c0 / KH : 0;
+  const int cloc = c0 - khead * KH;  // first slot's index in the key list
+  Dropout drop{0u, p.keep_thresh, p.inv_keep};
+  if constexpr (kDrop) drop.for_head(p.seed, bh0 + rhead);
+
+  T* dq = static_cast<T*>(p.dq);
+  const int n_chunks = (nkeys + KH - 1) / KH;
+  if (tid == 0) sNext = 0;
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    const int nvc = min(KH, nkeys - chunk * KH);
+    const bool first = chunk == 0;
+    const bool last = chunk == n_chunks - 1;
+    __syncthreads();  // the last chunk's readers of sKey, sK and sV are done
+    if (tid < 32) collect_keys(listed, p.Lk, nvc, sKey, &sNext);
+    __syncthreads();
+    stage_keys<T>(sK, sV, sKey, p, bh0, nvc);
+    stage_tile<T>(sQ, sDO, sLse, sDelta, p, bh0, 0);
+    cp_async_commit();
+
+    float dk_acc[KPT][4 * CV], dv_acc[KPT][4 * CV];
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4 * CV; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+    }
+    const bool keys_on = keys_live && cloc < nvc;
+
+    for (int q0 = 0; q0 < p.Lq; q0 += RH) {
+      const int qv = min(RH, p.Lq - q0);  // rows of each head in the tile
+      cp_async_wait_all();
+      __syncthreads();  // the tile is staged; the last tile's dQ is done
+
+      // S and dP for this thread's rows and its head's key slots; P and dS
+      // into shared memory, transposed (rows past Lq in a micro-tile with a
+      // row before it get P = dS = 0; the dK/dV loop reads no later row)
+      bool on[NJ];
+      bool any_on = false;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = lo + 16 * j;
+        on[j] = rows_live && rloc < qv && c / KH == rhead &&
+                c - rhead * KH < nvc;
+        any_on |= on[j];
+      }
+      if (any_on) {
+        float s[4][NJ], dp[4][NJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+        }
+#pragma unroll 2
+        for (int d = 0; d < D; d += 4) {
+          float4 qa[4], oa[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            qa[i] = ld4(sQ + (r0 + i) * ld + d);
+            oa[i] = ld4(sDO + (r0 + i) * ld + d);
+          }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            if (!on[j]) continue;
+            const float4 kb = ld4(sK + (lo + 16 * j) * ld + d);
+            const float4 vb = ld4(sV + (lo + 16 * j) * ld + d);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              s[i][j] = dot4(qa[i], kb, s[i][j]);
+              dp[i][j] = dot4(oa[i], vb, dp[i][j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (!on[j]) continue;
+          const int c = lo + 16 * j;
+          const int key = sKey[c - rhead * KH];
+          float pv[4], ds[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pr = expf(
+                (all_masked ? kMaskedScore : s[i][j] * p.scale) -
+                sLse[r0 + i]);
+            float dpi = dp[i][j];
+            pv[i] = pr;
+            if constexpr (kDrop) {
+              const float f = drop.factor(q0 + rloc + i, key);
+              pv[i] = pr * f;
+              dpi *= f;
+            }
+            ds[i] = pr * (dpi - sDelta[r0 + i]) * p.scale;
+          }
+          *reinterpret_cast<float4*>(sPt + c * kLdT + r0) =
+              make_float4(pv[0], pv[1], pv[2], pv[3]);
+          *reinterpret_cast<float4*>(sDSt + c * kLdT + r0) =
+              make_float4(ds[0], ds[1], ds[2], ds[3]);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q over the head's rows of the tile
+      if (keys_on) {
+        const int rbeg = khead * RH;
+        const int rend = rbeg + ((qv + 3) & ~3);
+        for (int r = rbeg; r < rend; r += 4) {
+          float4 pt[KPT], dt[KPT];
+#pragma unroll
+          for (int j = 0; j < KPT; ++j) {
+            pt[j] = ld4(sPt + (c0 + j) * kLdT + r);
+            dt[j] = ld4(sDSt + (c0 + j) * kLdT + r);
+          }
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+#pragma unroll
+            for (int m = 0; m < CV; ++m) {
+              const int e = 4 * lo + 64 * m;
+              if (e >= D) continue;
+              const float4 o4 = ld4(sDO + (r + rr) * ld + e);
+              const float4 q4 = ld4(sQ + (r + rr) * ld + e);
+#pragma unroll
+              for (int j = 0; j < KPT; ++j) {
+                const float pj = at(pt[j], rr);
+                const float dj = at(dt[j], rr);
+                dv_acc[j][4 * m + 0] = fmaf(pj, o4.x, dv_acc[j][4 * m + 0]);
+                dv_acc[j][4 * m + 1] = fmaf(pj, o4.y, dv_acc[j][4 * m + 1]);
+                dv_acc[j][4 * m + 2] = fmaf(pj, o4.z, dv_acc[j][4 * m + 2]);
+                dv_acc[j][4 * m + 3] = fmaf(pj, o4.w, dv_acc[j][4 * m + 3]);
+                dk_acc[j][4 * m + 0] = fmaf(dj, q4.x, dk_acc[j][4 * m + 0]);
+                dk_acc[j][4 * m + 1] = fmaf(dj, q4.y, dk_acc[j][4 * m + 1]);
+                dk_acc[j][4 * m + 2] = fmaf(dj, q4.z, dk_acc[j][4 * m + 2]);
+                dk_acc[j][4 * m + 3] = fmaf(dj, q4.w, dk_acc[j][4 * m + 3]);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();  // Q, dO, lse and delta are free
+
+      // the next tile's copy lands while this tile's dQ is formed
+      if (q0 + RH < p.Lq) {
+        stage_tile<T>(sQ, sDO, sLse, sDelta, p, bh0, q0 + RH);
+        cp_async_commit();
+      }
+
+      // dQ = dS K over the head's key slots of the chunk
+      if (rows_live && rloc < qv) {
+        const int cbeg = rhead * KH;
+        const int cend = cbeg + nvc;
+        const size_t row0 = static_cast<size_t>(bh0 + rhead) * p.Lq + q0 +
+                            rloc;
+#pragma unroll
+        for (int pass = 0; pass < Tl::kDqPasses; ++pass) {
+          const int e0 = 128 * pass + 4 * lo;
+          if (e0 >= D) break;
+          float acc[4][8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[i][e] = 0.0f;
+          }
+          for (int c = cbeg; c < cend; ++c) {
+            const float4 d4 = ld4(sDSt + c * kLdT + r0);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              const int e = e0 + 64 * m;
+              if (e >= D) continue;
+              const float4 k4 = ld4(sK + c * ld + e);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float di = at(d4, i);
+                acc[i][4 * m + 0] = fmaf(di, k4.x, acc[i][4 * m + 0]);
+                acc[i][4 * m + 1] = fmaf(di, k4.y, acc[i][4 * m + 1]);
+                acc[i][4 * m + 2] = fmaf(di, k4.z, acc[i][4 * m + 2]);
+                acc[i][4 * m + 3] = fmaf(di, k4.w, acc[i][4 * m + 3]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (rloc + i >= qv) continue;
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              const int e = e0 + 64 * m;
+              if (e >= D) continue;
+              const size_t off = (row0 + i) * D + e;
+              float4 val = make_float4(acc[i][4 * m], acc[i][4 * m + 1],
+                                       acc[i][4 * m + 2], acc[i][4 * m + 3]);
+              if (!first) {  // earlier chunks' sum, added in chunk order
+                const float4 w = ld4(p.dq_ws + off);
+                val = make_float4(w.x + val.x, w.y + val.y, w.z + val.z,
+                                  w.w + val.w);
+              }
+              if (last) {
+                store4<T>(dq + off, val);
+              } else {
+                *reinterpret_cast<float4*>(p.dq_ws + off) = val;
+              }
+            }
+          }
+        }
+      }
+    }
+
+    // the chunk's dK and dV rows, at their keys' original indices
+    if (keys_on) {
+      const size_t head_row = static_cast<size_t>(bh0 + khead) * p.Lk;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        if (cloc + j >= nvc) continue;
+        const size_t row = head_row + sKey[cloc + j];
+#pragma unroll
+        for (int m = 0; m < CV; ++m) {
+          const int e = 4 * lo + 64 * m;
+          if (e >= D) continue;
+          store4<T>(static_cast<T*>(p.dk) + row * D + e,
+                    make_float4(dk_acc[j][4 * m], dk_acc[j][4 * m + 1],
+                                dk_acc[j][4 * m + 2], dk_acc[j][4 * m + 3]));
+          store4<T>(static_cast<T*>(p.dv) + row * D + e,
+                    make_float4(dv_acc[j][4 * m], dv_acc[j][4 * m + 1],
+                                dv_acc[j][4 * m + 2], dv_acc[j][4 * m + 3]));
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int DMAX, bool kDrop>
+int launch(const Params& p, cudaStream_t stream) {
+  auto kern = flash_bwd_kernel<T, DMAX, kDrop>;
+  const size_t bytes = smem_bytes(p.D, Tiling<DMAX>::kKeys);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Lk + kBK - 1) / kBK, a.BH);
-  kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.mask, static_cast<const T*>(a.dout),
-      a.lse, a.delta, static_cast<T*>(a.g0), static_cast<T*>(a.g1), a.H,
-      a.Lq, a.Lk, a.D, a.scale, a.seed, a.keep_thresh, a.inv_keep);
+  kern<<<p.BH / p.G, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Picks the instance: the accumulator width for D (128 or 256), for the
-// kernel, input type and dropout of the caller.
-template <bool kDq, typename T, bool kDrop>
-int dispatch_d(const Args& a, cudaStream_t s) {
-  if constexpr (kDq) {
-    return a.D <= 128 ? launch_dq<T, 128, kDrop>(a, s)
-                      : launch_dq<T, 256, kDrop>(a, s);
-  } else {
-    return a.D <= 128 ? launch_dkv<T, 128, kDrop>(a, s)
-                      : launch_dkv<T, 256, kDrop>(a, s);
-  }
-}
-
-template <bool kDq>
-int dispatch(const Args& a, int dtype, void* stream) {
-  if (a.D <= 0 || a.D > 256 || a.D % 8 != 0 || a.Lq <= 0 || a.Lk <= 0 ||
-      a.BH <= 0 || a.H <= 0 || a.BH % a.H != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool drop = a.inv_keep > 0.0f;
-  if (dtype == 0) {
-    return drop ? dispatch_d<kDq, float, true>(a, s)
-                : dispatch_d<kDq, float, false>(a, s);
-  }
-  if (dtype == 1) {
-    return drop ? dispatch_d<kDq, bf16, true>(a, s)
-                : dispatch_d<kDq, bf16, false>(a, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+// input type and dropout of the caller.
+template <typename T, bool kDrop>
+int dispatch_d(const Params& p, cudaStream_t s) {
+  return p.D <= 128 ? launch<T, 128, kDrop>(p, s)
+                    : launch<T, 256, kDrop>(p, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q, dout (BH, Lq, D); k, v (BH, Lk, D);
-// mask (BH / H, Lk) bytes or null; lse and delta (BH, Lq) float32; dq like
-// q. Dropout as in sola_flash_attn_fwd (inv_keep = 0: none). Returns the
-// cudaError_t of the launch (0 on success).
-int sola_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
-                           const unsigned char* mask, const void* dout,
-                           const float* lse, const float* delta, void* dq,
-                           int BH, int H, int Lq, int Lk, int D, int dtype,
-                           float scale, unsigned int seed,
-                           unsigned int keep_thresh, float inv_keep,
-                           void* stream) {
-  const Args a{q, k, v, mask, dout, lse, delta, dq, nullptr, BH, H, Lq, Lk, D,
-               scale, seed, keep_thresh, inv_keep};
-  return dispatch<true>(a, dtype, stream);
-}
-
-// As sola_flash_attn_bwd_dq, writing dk and dv (like k and v).
-int sola_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
-                            const unsigned char* mask, const void* dout,
-                            const float* lse, const float* delta, void* dk,
-                            void* dv, int BH, int H, int Lq, int Lk, int D,
-                            int dtype, float scale, unsigned int seed,
-                            unsigned int keep_thresh, float inv_keep,
-                            void* stream) {
-  const Args a{q, k, v, mask, dout, lse, delta, dk, dv, BH, H, Lq, Lk, D,
-               scale, seed, keep_thresh, inv_keep};
-  return dispatch<false>(a, dtype, stream);
+// dtype: 0 = float32, 1 = bfloat16. q, dout, dq (BH, Lq, D); k, v, dk, dv
+// (BH, Lk, D); mask (BH / H, Lk) bytes or null; lse and delta (BH, Lq)
+// float32. The work split (flash_attention.bwd_plan): G consecutive heads
+// of one batch entry a block (G divides H), RH rows of each head in a
+// query tile and KH key slots of each head in a chunk, both multiples of
+// 4, with G * RH <= 64 and G * KH <= 64 (32 at D > 128). dq_ws is an fp32
+// (BH, Lq, D) workspace, needed when Lk > KH (the keys may span chunks),
+// else null. Dropout as in sola_flash_attn_fwd (inv_keep = 0: none).
+// Returns the cudaError_t of the launch (0 on success).
+int sola_flash_attn_bwd(const void* q, const void* k, const void* v,
+                        const unsigned char* mask, const void* dout,
+                        const float* lse, const float* delta, void* dq,
+                        void* dk, void* dv, float* dq_ws, int BH, int H,
+                        int Lq, int Lk, int D, int G, int RH, int KH,
+                        int dtype, float scale, unsigned int seed,
+                        unsigned int keep_thresh, float inv_keep,
+                        void* stream) {
+  const int keys = D <= 128 ? Tiling<128>::kKeys : Tiling<256>::kKeys;
+  if (D <= 0 || D > 256 || D % 8 != 0 || Lq <= 0 || Lk <= 0 || BH <= 0 ||
+      H <= 0 || BH % H != 0 || G <= 0 || H % G != 0 || RH <= 0 ||
+      KH <= 0 || RH % 4 != 0 || KH % 4 != 0 || G * RH > kRows ||
+      G * KH > keys || (Lk > KH && dq_ws == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params p{q,  k,  v,  mask, dout, lse, delta, dq, dk, dv, dq_ws,
+                 BH, H,  Lq, Lk,   D,    G,   RH,    KH, scale, seed,
+                 keep_thresh, inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool drop = inv_keep > 0.0f;
+  if (dtype == 0) {
+    return drop ? dispatch_d<float, true>(p, s)
+                : dispatch_d<float, false>(p, s);
+  }
+  if (dtype == 1) {
+    return drop ? dispatch_d<bf16, true>(p, s)
+                : dispatch_d<bf16, false>(p, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

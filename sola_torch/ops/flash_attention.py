@@ -2,7 +2,7 @@
 Hopper.
 
 Counterpart of ``sola_tpu/ops/flash_attention.py`` (``fused_attention``,
-``fused_attention_lse``). Three kernels replace the three Pallas kernels:
+``fused_attention_lse``). Two kernels replace the three Pallas kernels:
 
 * ``sola_torch/csrc/flash_attn_fwd.cu`` replaces ``_attn_kernel``:
   blockwise online-softmax ``softmax(QK^T/sqrt(D)) V`` with fp32
@@ -12,14 +12,17 @@ Counterpart of ``sola_tpu/ops/flash_attention.py`` (``fused_attention``,
   3xTF32 ``mma.sync`` with a ``cp.async`` ring. Each block lists the key
   tiles that its mask row leaves non-empty and skips the others;
 * ``sola_torch/csrc/flash_attn_bwd.cu`` replaces ``_attn_bwd_dq_kernel``
-  and ``_attn_bwd_dkv_kernel``: dQ, and dK/dV, recomputed from the saved
-  logsumexp.
+  and ``_attn_bwd_dkv_kernel`` with one fused kernel: a block owns a chunk
+  of a head's valid keys (small heads packed several to a block), walks
+  its query tiles, recomputes S and dP once per tile from the saved
+  logsumexp, keeps dK and dV in registers and writes each tile's dQ
+  (through an fp32 workspace only when the keys span several chunks).
 
 Dropout is the JAX package's counter hash (``_keep_mask``): an entry
 (batch*head, global query, global key) is kept when splitmix32 of the seed
 and those indices falls below ``round((1 - rate) * 2^32)``, and kept
 probabilities are scaled by ``1 / (1 - rate)``; the softmax denominator
-stays undropped. All three kernels regenerate the same mask from the seed,
+stays undropped. Both kernels regenerate the same mask from the seed,
 so no mask tensor exists. ``fused_attention`` wires them as one
 ``torch.autograd.Function``.
 
@@ -41,11 +44,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 
 # kernel launches since the last reset (plain integers; chip_smoke.py zeroes
-# them before a path and reads them after): the forward, the dQ kernel and
-# the dK/dV kernel
+# them before a path and reads them after): the forward and the backward
 launches = 0
-bwd_dq_launches = 0
-bwd_dkv_launches = 0
+bwd_launches = 0
+# query rows of the backward kernel's tile (kRows in csrc/flash_attn_bwd.cu)
+BWD_ROWS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -143,14 +146,14 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) (B, H, Lq) fp32, from the forward's own
-    (dropped) output: one torch reduction before the backward kernels."""
+    (dropped) output: one torch reduction before the backward kernel."""
     return (do.float() * out.float()).sum(dim=-1).contiguous()
 
 
 def attention_bwd_reference(q, k, v, key_mask, out, lse, do,
                             dropout_rate: float = 0.0,
                             dropout_seed: Optional[int] = None):
-    """Plain PyTorch version of the two backward kernels: (dq, dk, dv) in
+    """Plain PyTorch version of the backward kernel: (dq, dk, dv) in
     the dtypes of q, k, v, in the formulas of ``_attn_bwd_dq_kernel`` and
     ``_attn_bwd_dkv_kernel``: P = exp(S - lse) from the forward's lse,
     delta = rowsum(dO * O) from its (dropped) output, dP = dO V^T times the
@@ -201,8 +204,26 @@ def _fwd_library():
 
 def _bwd_library():
     return _library("flash_attn_bwd", {
-        "sola_flash_attn_bwd_dq": [_PTR] * 8 + [_INT] * 6 + _DROP_ARGS,
-        "sola_flash_attn_bwd_dkv": [_PTR] * 9 + [_INT] * 6 + _DROP_ARGS})
+        "sola_flash_attn_bwd": [_PTR] * 11 + [_INT] * 9 + _DROP_ARGS})
+
+
+def bwd_plan(h: int, lq: int, lk: int, d: int) -> tuple:
+    """The backward kernel's work split: (G, RH, KH) = heads a block (G
+    consecutive heads of one batch entry, sharing its mask row), rows of
+    each head in a query tile and key slots of each head in a chunk. A
+    chunk holds 64 key slots at d <= 128 and 32 above, so that dK and dV
+    fit the registers. Heads are packed when Lq and Lk, rounded up to 4,
+    fit G times into a tile and a chunk (motion_attn's 8 x 8: G = 8);
+    otherwise G = 1 with full tiles and chunks. The keys may span several
+    chunks, and dQ then needs a workspace, only when lk > KH."""
+    keys = 64 if d <= 128 else 32
+    rh, kh = -(-lq // 4) * 4, -(-lk // 4) * 4
+    g = max((n for n in range(1, h + 1)
+             if h % n == 0 and n * rh <= BWD_ROWS and n * kh <= keys),
+            default=1)
+    if g == 1:
+        return 1, BWD_ROWS, keys
+    return g, rh, kh
 
 
 def _check(q, k, v, key_mask, extra=()):
@@ -270,12 +291,12 @@ def _launch(q, k, v, key_mask, dropout_rate=0.0, dropout_seed=None):
     return out, lse
 
 
-def _launch_bwd_kernel(kernel: str, q, k, v, key_mask, do, lse, delta,
-                       dropout_rate=0.0, dropout_seed=None) -> tuple:
-    """One backward kernel: "dq" gives (dq,) like q, "dkv" gives (dk, dv)
-    like k, v."""
-    global bwd_dq_launches, bwd_dkv_launches
+def _launch_bwd_kernel(q, k, v, key_mask, do, lse, delta, dropout_rate=0.0,
+                       dropout_seed=None) -> tuple:
+    """The fused backward kernel, one launch: (dq, dk, dv) like q, k, v."""
+    global bwd_launches
     b, h, lq, d = q.shape
+    lk = k.shape[2]
     mask = _check(q, k, v, key_mask,
                   (("do", do), ("lse", lse), ("delta", delta)))
     if (do.shape != q.shape or do.dtype != q.dtype
@@ -283,33 +304,34 @@ def _launch_bwd_kernel(kernel: str, q, k, v, key_mask, do, lse, delta,
         raise ValueError(f"do {tuple(do.shape)} {do.dtype}, lse "
                          f"{tuple(lse.shape)}, delta {tuple(delta.shape)} do "
                          f"not match q {tuple(q.shape)} {q.dtype}")
-    grads = tuple(torch.empty_like(t)
-                  for t in ((q,) if kernel == "dq" else (k, v)))
+    g, rh, kh = bwd_plan(h, lq, lk, d)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # dQ summed over several key chunks in fp32, in chunk order
+    ws = (torch.empty(q.shape, device=q.device, dtype=torch.float32)
+          if lk > kh else None)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
-        rc = getattr(lib, f"sola_flash_attn_bwd_{kernel}")(
+        rc = lib.sola_flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             mask.data_ptr() if mask is not None else None, do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads),
-            b * h, h, lq, k.shape[2], d, _DTYPE_CODE[q.dtype],
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), ws.data_ptr() if ws is not None else None,
+            b * h, h, lq, lk, d, g, rh, kh, _DTYPE_CODE[q.dtype],
             *_drop_args(q, dropout_rate, dropout_seed), _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash attention {kernel} kernel launch failed: "
+        raise RuntimeError(f"flash attention backward kernel launch failed: "
                            f"cudaError {rc}")
-    if kernel == "dq":
-        bwd_dq_launches += 1
-    else:
-        bwd_dkv_launches += 1
-    return grads
+    bwd_launches += 1
+    return dq, dk, dv
 
 
 def _launch_bwd(q, k, v, key_mask, out, lse, do, dropout_rate=0.0,
                 dropout_seed=None):
-    """delta, then the dQ and dK/dV kernels: (dq, dk, dv)."""
+    """delta, then the fused backward kernel: (dq, dk, dv)."""
     do = do.to(q.dtype).contiguous()
     delta = bwd_delta(out, do)
-    args = (q, k, v, key_mask, do, lse, delta, dropout_rate, dropout_seed)
-    return _launch_bwd_kernel("dq", *args) + _launch_bwd_kernel("dkv", *args)
+    return _launch_bwd_kernel(q, k, v, key_mask, do, lse, delta,
+                              dropout_rate, dropout_seed)
 
 
 def flash_forward(q, k, v, key_mask=None, dropout_rate=0.0,
@@ -324,8 +346,8 @@ def flash_forward(q, k, v, key_mask=None, dropout_rate=0.0,
 
 def flash_backward(q, k, v, key_mask, out, lse, do, dropout_rate=0.0,
                    dropout_seed=None):
-    """(dq, dk, dv): the dQ and dK/dV kernels on a CUDA tensor, their plain
-    version on a CPU tensor."""
+    """(dq, dk, dv): the backward kernel on a CUDA tensor, its plain version
+    on a CPU tensor."""
     if q.is_cuda:
         return _launch_bwd(q, k, v, key_mask, out, lse, do, dropout_rate,
                            dropout_seed)
@@ -335,7 +357,7 @@ def flash_backward(q, k, v, key_mask, out, lse, do, dropout_rate=0.0,
 
 class FlashAttention(torch.autograd.Function):
     """Fused attention whose forward is the forward kernel and whose
-    backward is the dQ and dK/dV kernels (plain versions on the CPU). The
+    backward is the backward kernel (plain versions on the CPU). The
     key mask and the dropout seed get no gradient."""
 
     @staticmethod
@@ -376,7 +398,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> torch.Tensor:
     """Fused attention over (B, H, Lq, D) / (B, H, Lk, D) head tensors with
     an optional (B, Lk) key-validity mask. Returns (B, H, Lq, D), with a
-    gradient through the backward kernels.
+    gradient through the backward kernel.
 
     ``dropout_rate`` > 0 drops attention probabilities in the kernels with
     the counter hash of ``dropout_seed``, a (1,) integer tensor (vary it per

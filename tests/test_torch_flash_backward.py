@@ -181,7 +181,153 @@ def test_bwd_reference_formulas_match_dense_autograd():
 
 def test_cpu_path_counts_no_launch():
     q, k, v, cot = _inputs(6, 1, 1, 8, 8, 8)
-    before = (tfa.launches, tfa.bwd_dq_launches, tfa.bwd_dkv_launches)
+    before = (tfa.launches, tfa.bwd_launches)
     _torch_grads(q, k, v, cot, None, 0.1, 3)
-    assert (tfa.launches, tfa.bwd_dq_launches,
-            tfa.bwd_dkv_launches) == before
+    assert (tfa.launches, tfa.bwd_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the fused backward kernel's work split, walked on the CPU
+# ---------------------------------------------------------------------------
+
+EMULATION_ATOL = 1e-5  # fp32 on both sides; only the order of sums differs
+
+
+def _emulate_fused_backward(q, k, v, key_mask, out, lse, do, rate, seed):
+    """The loops of csrc/flash_attn_bwd.cu in torch, fp32, at its index
+    maps: blocks of G packed heads (``bwd_plan``), the batch entry's key
+    list in ascending order (every key when none is valid), chunks of KH
+    slots per head with dQ carried in a workspace across chunks, query
+    tiles of RH rows per head with rows past Lq zero-filled (lse +inf),
+    products only inside each head's diagonal block, and the hash on the
+    original key index. Outputs start as NaN, so a slot the walk does not
+    write shows."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    g_n, rh, kh = tfa.bwd_plan(h, lq, lk, d)
+    scale = 1.0 / d ** 0.5
+    n = b * h
+    qf, dof = (t.reshape(n, lq, d).float() for t in (q, do))
+    kf, vf = (t.reshape(n, lk, d).float() for t in (k, v))
+    lse_f = lse.reshape(n, lq)
+    delta = tfa.bwd_delta(out, do).reshape(n, lq)
+    dq, dk, dv = (torch.full((n, m, d), float("nan")) for m in (lq, lk, lk))
+    inv_keep = tfa.dropout_consts(rate)[1] if rate else 1.0
+    for bh0 in range(0, n, g_n):
+        row = None if key_mask is None else key_mask[bh0 // h].bool()
+        all_masked = row is not None and not row.any()
+        listed = None if all_masked else row
+        keys_all = (torch.arange(lk) if listed is None
+                    else listed.nonzero()[:, 0])
+        if listed is not None:  # masked keys: zero rows, not computed
+            dk[bh0:bh0 + g_n, ~listed] = 0.0
+            dv[bh0:bh0 + g_n, ~listed] = 0.0
+        chunks = [keys_all[i:i + kh] for i in range(0, len(keys_all), kh)]
+        ws = torch.full((g_n, lq, d), float("nan"))
+        for ci, keys in enumerate(chunks):
+            nvc = len(keys)
+            s_k, s_v = (torch.zeros(g_n * kh, d) for _ in range(2))
+            for g in range(g_n):
+                s_k[g * kh:g * kh + nvc] = kf[bh0 + g, keys]
+                s_v[g * kh:g * kh + nvc] = vf[bh0 + g, keys]
+            dk_acc, dv_acc = torch.zeros(g_n * kh, d), torch.zeros(g_n * kh, d)
+            for q0 in range(0, lq, rh):
+                qv = min(rh, lq - q0)
+                rows4 = -(-qv // 4) * 4  # micro-tiles of 4 rows
+                s_q, s_do = torch.zeros(g_n * rh, d), torch.zeros(g_n * rh, d)
+                s_lse = torch.full((g_n * rh,), float("inf"))
+                s_delta = torch.zeros(g_n * rh)
+                for g in range(g_n):
+                    r = slice(g * rh, g * rh + qv)
+                    s_q[r] = qf[bh0 + g, q0:q0 + qv]
+                    s_do[r] = dof[bh0 + g, q0:q0 + qv]
+                    s_lse[r] = lse_f[bh0 + g, q0:q0 + qv]
+                    s_delta[r] = delta[bh0 + g, q0:q0 + qv]
+                p_t = torch.full((g_n * kh, g_n * rh), float("nan"))
+                ds_t = torch.full((g_n * kh, g_n * rh), float("nan"))
+                for g in range(g_n):
+                    r = slice(g * rh, g * rh + rows4)
+                    c = slice(g * kh, g * kh + nvc)
+                    s = s_q[r] @ s_k[c].T
+                    dp = s_do[r] @ s_v[c].T
+                    score = (torch.full_like(s, tfa.NEG_INF) if all_masked
+                             else s * scale)
+                    p = torch.exp(score - s_lse[r, None])
+                    pv = p
+                    if rate:
+                        keep = tfa.keep_mask_reference(
+                            seed, bh0 + g, q0 + rows4, lk, rate)
+                        f = keep[q0:q0 + rows4][:, keys].float() * inv_keep
+                        pv, dp = p * f, dp * f
+                    p_t[c, r] = pv.T
+                    ds_t[c, r] = (p * (dp - s_delta[r, None]) * scale).T
+                for g in range(g_n):
+                    r = slice(g * rh, g * rh + rows4)
+                    c = slice(g * kh, g * kh + nvc)
+                    dv_acc[c] += p_t[c, r] @ s_do[r]
+                    dk_acc[c] += ds_t[c, r] @ s_q[r]
+                    part = ds_t[c, g * rh:g * rh + qv].T @ s_k[c]
+                    if len(chunks) == 1:
+                        dq[bh0 + g, q0:q0 + qv] = part
+                        continue
+                    acc = part if ci == 0 else ws[g, q0:q0 + qv] + part
+                    ws[g, q0:q0 + qv] = acc
+                    if ci == len(chunks) - 1:
+                        dq[bh0 + g, q0:q0 + qv] = acc
+            for g in range(g_n):
+                dk[bh0 + g, keys] = dk_acc[g * kh:g * kh + nvc]
+                dv[bh0 + g, keys] = dv_acc[g * kh:g * kh + nvc]
+    return tuple(t.reshape(b, h, -1, d) for t in (dq, dk, dv))
+
+
+def _frames_mask(b, lk, lengths):
+    return torch.arange(lk)[None] < torch.tensor(lengths)[:, None]
+
+
+# (name, b, h, lq, lk, d, mask, plan the case must take)
+FUSED_CASES = [
+    ("obj_like", 2, 2, 16, 16, 16,
+     lambda: _frames_mask(2, 16, [10, 10]), (2, 16, 16)),
+    ("motion_like_packed", 3, 8, 8, 8, 16,
+     lambda: _frames_mask(3, 8, [3, 8, 5]), (8, 8, 8)),
+    ("object2lang_like", 2, 2, 40, 24, 16,
+     lambda: torch.ones(2, 24, dtype=torch.bool).index_fill_(
+         1, torch.arange(6, 16), False), (1, 64, 64)),
+    ("several_chunks", 1, 2, 70, 150, 16,
+     lambda: torch.ones(1, 150, dtype=torch.bool), (1, 64, 64)),
+    ("no_valid_key", 2, 2, 16, 16, 16,
+     lambda: _frames_mask(2, 16, [0, 9]), (2, 16, 16)),
+]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("case", FUSED_CASES, ids=[c[0] for c in FUSED_CASES])
+def test_fused_work_split_matches_plain_backward(case, rate):
+    name, b, h, lq, lk, d, make_mask, plan = case
+    assert tfa.bwd_plan(h, lq, lk, d) == plan
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(len(name), b, h, lq, lk, d))
+    mask = make_mask()
+    seed = 0x2545F491
+    out, lse = tfa.attention_reference(q, k, v, mask, rate, seed)
+    got = _emulate_fused_backward(q, k, v, mask, out, lse, do, rate, seed)
+    want = tfa.attention_bwd_reference(q, k, v, mask, out, lse, do, rate,
+                                       seed)
+    for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), w.numpy(),
+                                   atol=EMULATION_ATOL, rtol=0, err_msg=n)
+    # masked keys of a batch entry with a valid key: exactly zero
+    zero = (~mask & mask.any(dim=1, keepdim=True))[:, None, :, None]
+    for g in got[1:]:
+        assert (g[zero.expand_as(k)] == 0).all()
+
+
+def test_bwd_plan_at_the_selection_sites():
+    """obj_attn and object2lang_attn take one 64-slot chunk of one head;
+    motion_attn packs its 8 heads of 8 x 8; D 256 halves the chunk."""
+    assert tfa.bwd_plan(8, 64, 64, 128) == (1, 64, 64)
+    assert tfa.bwd_plan(8, 8, 8, 128) == (8, 8, 8)
+    assert tfa.bwd_plan(8, 512, 128, 128) == (1, 64, 64)
+    assert tfa.bwd_plan(8, 70, 90, 256) == (1, 64, 32)
+    assert tfa.bwd_plan(8, 8, 8, 256) == (4, 8, 8)
+    assert tfa.bwd_plan(6, 5, 3, 64) == (6, 8, 4)
