@@ -52,21 +52,30 @@
 //   slots G runs of KH slots. Every micro-tile lies inside one head's run,
 //   and a thread computes only the micro-tiles of its own head's diagonal
 //   block, so no product crosses heads.
-// - Register-tiled products from float4 loads. S and dP: a thread owns 4
-//   rows x 4 key slots (strided by 16), reading 4 head-dim values of each
-//   operand at once (8 FMAs a 16-byte load). dK and dV: 4 key slots x 8
-//   columns (2 x 16 at D <= 256), reading 4 rows of P^T / dS^T at once
-//   (about 11 FMAs a load). dQ: 4 rows x 8 columns a pass. Row strides of
-//   D + 4 and 68 floats keep each quarter-warp's 16-byte loads on distinct
-//   banks.
+// - Register-tiled products from float4 loads, 512 threads (16 warps, four
+//   to each scheduler, to hide shared-memory latency; at most 128
+//   registers a thread). The block's halves split the work by matrix: S
+//   and dP each take 4 rows x 4 key slots a thread, reading 4 head-dim
+//   values of each operand at once; P and dS are then formed in place,
+//   4 rows at a time, with the lse, delta and the keep mask; dV and dK
+//   each keep 8 key slots x 4 columns a thread, reading 4 rows of P^T or
+//   dS^T at once (about 11 FMAs a 16-byte load); dQ takes 4 rows x 4
+//   columns a thread. Row strides of D + 4 and 68 floats keep each
+//   quarter-warp's 16-byte loads on distinct banks.
 // - Staging overlapped with the products. fp32 tiles arrive by 16-byte
 //   cp.async (rows past Lq zero-filled). With one 64-row buffer for Q and
 //   dO (two would not fit beside K, V, P and dS at D 128: 237 KB), the next
 //   query tile's copy is issued as soon as dK and dV stop reading Q and dO,
 //   and lands while the block computes the current tile's dQ. bf16 inputs
 //   are widened to fp32 on staging through registers at the same point.
-//   Shared memory: 170,768 bytes at D 128, 217,744 at D 256; one block of
-//   256 threads an SM.
+//   Shared memory: 170,768 bytes at D 128, 217,744 at D 256; one block an
+//   SM.
+//
+// What is left: one block a head leaves 68 of the 132 SMs idle at
+// object2lang_attn (64 heads) and more where Lk spans several chunks, and
+// the S / dP products, at 2 bytes of shared memory a thread for each FMA,
+// take about half the time; splitting a head's queries over blocks and
+// tensor-core products are the next steps.
 //
 // Head dims: any D <= 256 that is a multiple of 8; any Lq and Lk.
 
@@ -82,7 +91,7 @@ using sola_dropout::Dropout;
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kRows = 64;         // query rows of a tile, all packed heads
 constexpr int kLdT = kRows + 4;   // leading dim of the transposed P, dS
 constexpr float kMaskedScore = -1e30f;
@@ -92,10 +101,10 @@ constexpr float kMaskedScore = -1e30f;
 template <int DMAX>
 struct Tiling {
   static constexpr int kKeys = DMAX <= 128 ? 64 : 32;
-  static constexpr int kScoreCols = kKeys / 16;    // S/dP key slots a thread
-  static constexpr int kKeysPerThread = kKeys / 16;  // dK/dV key slots
-  static constexpr int kColVecs = DMAX / 64;       // float4 column groups
-  static constexpr int kDqPasses = DMAX / 128;     // dQ column passes
+  static constexpr int kScoreCols = kKeys / 16;  // S or dP key slots a thread
+  static constexpr int kKeyGroups = kKeys / 8;   // dK or dV: 8 slots a thread
+  static constexpr int kColGroups = DMAX / 4;    // dK or dV: 4 columns
+  static constexpr int kDqPasses = DMAX / 128;   // dQ column passes
 };
 
 __host__ __device__ inline size_t smem_bytes(int D, int keys) {
@@ -284,8 +293,8 @@ flash_bwd_kernel(const Params p) {
   using Tl = Tiling<DMAX>;
   constexpr int KC = Tl::kKeys;
   constexpr int NJ = Tl::kScoreCols;
-  constexpr int KPT = Tl::kKeysPerThread;
-  constexpr int CV = Tl::kColVecs;
+  constexpr int KG = Tl::kKeyGroups;
+  constexpr int CG = Tl::kColGroups;
   extern __shared__ __align__(16) float smem[];
   __shared__ int sNext;  // scan position of the next chunk's keys
 
@@ -335,21 +344,46 @@ flash_bwd_kernel(const Params p) {
     }
   }
 
-  // thread roles. S/dP and dQ: rows 4*hi .. 4*hi + 3 of the tile (one
-  // head's run); S/dP key slots lo + 16 j; dQ columns 4*lo + 64 m.
-  // dK/dV: key slots KPT*hi .. + KPT - 1, columns 4*lo + 64 m.
-  const int hi = tid >> 4;
-  const int lo = tid & 15;
-  const int r0 = 4 * hi;
-  const bool rows_live = r0 < G * RH;
-  const int rhead = rows_live ? r0 / RH : 0;
-  const int rloc = r0 - rhead * RH;  // first row's query within its tile
-  const int c0 = KPT * hi;
-  const bool keys_live = c0 < G * KH;
-  const int khead = keys_live ? c0 / KH : 0;
-  const int cloc = c0 - khead * KH;  // first slot's index in the key list
-  Dropout drop{0u, p.keep_thresh, p.inv_keep};
-  if constexpr (kDrop) drop.for_head(p.seed, bh0 + rhead);
+  // per-head hash bases of the block's heads (G <= 16)
+  __shared__ uint32_t sBase[16];
+  if (kDrop && tid < G) {
+    Dropout d{0u, 0u, 0.0f};
+    d.for_head(p.seed, bh0 + tid);
+    sBase[tid] = d.base;
+  }
+
+  // thread roles. The two halves of the block split S / dP and dV / dK:
+  // - S (half 0) or dP (half 1): rows 4*sh .. 4*sh + 3 of the tile (one
+  //   head's run) x key slots sl + 16 j;
+  // - dV (half 0) or dK (half 1): key slots 8*kg .. 8*kg + 7 (one head's
+  //   run) x columns 4*cg .. 4*cg + 3; the accumulator persists over the
+  //   chunk's query tiles. Half 1 numbers its key groups from KG / 4, so
+  //   that the groups a short key list leaves busy spread over the SM's
+  //   four schedulers;
+  // - dQ (all): rows 4*qh .. 4*qh + 3 x columns 4*ql + 128*pass.
+  const int half = tid >> 8;
+  const int t = tid & 255;
+  const int sh = t >> 4, sl = t & 15;
+  const int sr0 = 4 * sh;
+  const bool s_live = sr0 < G * RH;
+  const int shead = s_live ? sr0 / RH : 0;
+  const int sloc = sr0 - shead * RH;  // first row's query within its tile
+  const int kg = (t / CG + half * (KG / 4)) % KG, cg = t % CG;
+  const int kc0 = 8 * kg;
+  const bool k_live = kc0 < G * KH;
+  const int khead = k_live ? kc0 / KH : 0;
+  const int kloc = kc0 - khead * KH;  // first slot's index in the key list
+  const int qh = tid >> 5, ql = tid & 31;
+  const int qr0 = 4 * qh;
+  const bool q_live = qr0 < G * RH;
+  const int qhead = q_live ? qr0 / RH : 0;
+  const int qloc = qr0 - qhead * RH;
+  const float* sRowOp = half ? sDO : sQ;   // S: Q K^T; dP: dO V^T
+  const float* sKeyOp = half ? sV : sK;
+  float* sScore = half ? sDSt : sPt;       // S, then P; dP, then dS
+  const float* sGradA = half ? sDSt : sPt;  // dK: dS^T Q; dV: P^T dO
+  const float* sGradB = half ? sQ : sDO;
+  T* dkv = static_cast<T*>(half ? p.dk : p.dv);
 
   T* dq = static_cast<T*>(p.dq);
   const int n_chunks = (nkeys + KH - 1) / KH;
@@ -365,118 +399,124 @@ flash_bwd_kernel(const Params p) {
     stage_tile<T>(sQ, sDO, sLse, sDelta, p, bh0, 0);
     cp_async_commit();
 
-    float dk_acc[KPT][4 * CV], dv_acc[KPT][4 * CV];
+    float acc[8][4];  // dV (half 0) or dK (half 1): 8 slots x 4 columns
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4 * CV; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
     }
-    const bool keys_on = keys_live && cloc < nvc;
+    const bool k_on = k_live && kloc < nvc;
+    // one key slot past the last that S / dP need, for an unpacked block
+    const int jmax = (nvc + 15) / 16;
 
     for (int q0 = 0; q0 < p.Lq; q0 += RH) {
       const int qv = min(RH, p.Lq - q0);  // rows of each head in the tile
+      const int rows4 = (qv + 3) & ~3;    // rows that the micro-tiles cover
       cp_async_wait_all();
       __syncthreads();  // the tile is staged; the last tile's dQ is done
 
-      // S and dP for this thread's rows and its head's key slots; P and dS
-      // into shared memory, transposed (rows past Lq in a micro-tile with a
-      // row before it get P = dS = 0; the dK/dV loop reads no later row)
+      // S (or dP) for this thread's rows and its head's key slots, into
+      // shared memory transposed
       bool on[NJ];
       bool any_on = false;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const int c = lo + 16 * j;
-        on[j] = rows_live && rloc < qv && c / KH == rhead &&
-                c - rhead * KH < nvc;
+        const int c = sl + 16 * j;
+        on[j] = s_live && sloc < qv && c / KH == shead &&
+                c - shead * KH < nvc;
         any_on |= on[j];
       }
       if (any_on) {
-        float s[4][NJ], dp[4][NJ];
+        float sc[4][NJ];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+          for (int j = 0; j < NJ; ++j) sc[i][j] = 0.0f;
         }
-#pragma unroll 2
+#pragma unroll 4
         for (int d = 0; d < D; d += 4) {
-          float4 qa[4], oa[4];
+          float4 ra[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            qa[i] = ld4(sQ + (r0 + i) * ld + d);
-            oa[i] = ld4(sDO + (r0 + i) * ld + d);
-          }
+          for (int i = 0; i < 4; ++i) ra[i] = ld4(sRowOp + (sr0 + i) * ld + d);
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
-            if (!on[j]) continue;
-            const float4 kb = ld4(sK + (lo + 16 * j) * ld + d);
-            const float4 vb = ld4(sV + (lo + 16 * j) * ld + d);
+            // unpacked: a uniform bound (a slot past nvc computes what no
+            // one reads); packed: the head's own slots only
+            if (G == 1 ? j >= jmax : !on[j]) continue;
+            const float4 kb = ld4(sKeyOp + (sl + 16 * j) * ld + d);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              s[i][j] = dot4(qa[i], kb, s[i][j]);
-              dp[i][j] = dot4(oa[i], vb, dp[i][j]);
-            }
+            for (int i = 0; i < 4; ++i) sc[i][j] = dot4(ra[i], kb, sc[i][j]);
           }
         }
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           if (!on[j]) continue;
-          const int c = lo + 16 * j;
-          const int key = sKey[c - rhead * KH];
+          *reinterpret_cast<float4*>(sScore + (sl + 16 * j) * kLdT + sr0) =
+              make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+        }
+      }
+      __syncthreads();
+
+      // P = exp(S * scale - lse) and dS = P (dP - delta) * scale, in place,
+      // 4 rows at a time; the dropped P (P * keep / (1 - rate)) is what dV
+      // takes, and the keep mask also scales dP
+      {
+        const int quads = rows4 / 4;
+        const int per_head = nvc * quads;
+        for (int it = tid; it < G * per_head; it += kThreads) {
+          const int g = it / per_head;
+          const int rem = it - g * per_head;
+          const int j = rem / quads;
+          const int i0 = (rem - j * quads) * 4;
+          const int c = g * KH + j;
+          const int r = g * RH + i0;
+          const float4 s4 = ld4(sPt + c * kLdT + r);
+          const float4 dp4 = ld4(sDSt + c * kLdT + r);
+          const float4 l4 = ld4(sLse + r);
+          const float4 de4 = ld4(sDelta + r);
+          Dropout drop{0u, p.keep_thresh, p.inv_keep};
+          if constexpr (kDrop) drop.base = sBase[g];
+          const int key = sKey[j];
           float pv[4], ds[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float pr = expf(
-                (all_masked ? kMaskedScore : s[i][j] * p.scale) -
-                sLse[r0 + i]);
-            float dpi = dp[i][j];
+                (all_masked ? kMaskedScore : at(s4, i) * p.scale) -
+                at(l4, i));
+            float dpi = at(dp4, i);
             pv[i] = pr;
             if constexpr (kDrop) {
-              const float f = drop.factor(q0 + rloc + i, key);
+              const float f = drop.factor(q0 + i0 + i, key);
               pv[i] = pr * f;
               dpi *= f;
             }
-            ds[i] = pr * (dpi - sDelta[r0 + i]) * p.scale;
+            ds[i] = pr * (dpi - at(de4, i)) * p.scale;
           }
-          *reinterpret_cast<float4*>(sPt + c * kLdT + r0) =
+          *reinterpret_cast<float4*>(sPt + c * kLdT + r) =
               make_float4(pv[0], pv[1], pv[2], pv[3]);
-          *reinterpret_cast<float4*>(sDSt + c * kLdT + r0) =
+          *reinterpret_cast<float4*>(sDSt + c * kLdT + r) =
               make_float4(ds[0], ds[1], ds[2], ds[3]);
         }
       }
       __syncthreads();
 
-      // dV += P^T dO and dK += dS^T Q over the head's rows of the tile
-      if (keys_on) {
+      // dV += P^T dO (half 0) or dK += dS^T Q (half 1) over the head's rows
+      if (k_on && 4 * cg < D) {
         const int rbeg = khead * RH;
-        const int rend = rbeg + ((qv + 3) & ~3);
-        for (int r = rbeg; r < rend; r += 4) {
-          float4 pt[KPT], dt[KPT];
+        for (int r = rbeg; r < rbeg + rows4; r += 4) {
+          float4 a[8];
 #pragma unroll
-          for (int j = 0; j < KPT; ++j) {
-            pt[j] = ld4(sPt + (c0 + j) * kLdT + r);
-            dt[j] = ld4(sDSt + (c0 + j) * kLdT + r);
-          }
+          for (int j = 0; j < 8; ++j) a[j] = ld4(sGradA + (kc0 + j) * kLdT + r);
 #pragma unroll
           for (int rr = 0; rr < 4; ++rr) {
+            const float4 b4 = ld4(sGradB + (r + rr) * ld + 4 * cg);
 #pragma unroll
-            for (int m = 0; m < CV; ++m) {
-              const int e = 4 * lo + 64 * m;
-              if (e >= D) continue;
-              const float4 o4 = ld4(sDO + (r + rr) * ld + e);
-              const float4 q4 = ld4(sQ + (r + rr) * ld + e);
-#pragma unroll
-              for (int j = 0; j < KPT; ++j) {
-                const float pj = at(pt[j], rr);
-                const float dj = at(dt[j], rr);
-                dv_acc[j][4 * m + 0] = fmaf(pj, o4.x, dv_acc[j][4 * m + 0]);
-                dv_acc[j][4 * m + 1] = fmaf(pj, o4.y, dv_acc[j][4 * m + 1]);
-                dv_acc[j][4 * m + 2] = fmaf(pj, o4.z, dv_acc[j][4 * m + 2]);
-                dv_acc[j][4 * m + 3] = fmaf(pj, o4.w, dv_acc[j][4 * m + 3]);
-                dk_acc[j][4 * m + 0] = fmaf(dj, q4.x, dk_acc[j][4 * m + 0]);
-                dk_acc[j][4 * m + 1] = fmaf(dj, q4.y, dk_acc[j][4 * m + 1]);
-                dk_acc[j][4 * m + 2] = fmaf(dj, q4.z, dk_acc[j][4 * m + 2]);
-                dk_acc[j][4 * m + 3] = fmaf(dj, q4.w, dk_acc[j][4 * m + 3]);
-              }
+            for (int j = 0; j < 8; ++j) {
+              const float aj = at(a[j], rr);
+              acc[j][0] = fmaf(aj, b4.x, acc[j][0]);
+              acc[j][1] = fmaf(aj, b4.y, acc[j][1]);
+              acc[j][2] = fmaf(aj, b4.z, acc[j][2]);
+              acc[j][3] = fmaf(aj, b4.w, acc[j][3]);
             }
           }
         }
@@ -490,48 +530,41 @@ flash_bwd_kernel(const Params p) {
       }
 
       // dQ = dS K over the head's key slots of the chunk
-      if (rows_live && rloc < qv) {
-        const int cbeg = rhead * KH;
+      if (q_live && qloc < qv) {
+        const int cbeg = qhead * KH;
         const int cend = cbeg + nvc;
-        const size_t row0 = static_cast<size_t>(bh0 + rhead) * p.Lq + q0 +
-                            rloc;
-#pragma unroll
+        const size_t row0 = static_cast<size_t>(bh0 + qhead) * p.Lq + q0 +
+                            qloc;
+#pragma unroll 1
         for (int pass = 0; pass < Tl::kDqPasses; ++pass) {
-          const int e0 = 128 * pass + 4 * lo;
-          if (e0 >= D) break;
-          float acc[4][8];
+          const int e = 128 * pass + 4 * ql;
+          if (e >= D) break;
+          float qacc[4][4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc[i][e] = 0.0f;
+            for (int x = 0; x < 4; ++x) qacc[i][x] = 0.0f;
           }
+#pragma unroll 4
           for (int c = cbeg; c < cend; ++c) {
-            const float4 d4 = ld4(sDSt + c * kLdT + r0);
+            const float4 d4 = ld4(sDSt + c * kLdT + qr0);
+            const float4 k4 = ld4(sK + c * ld + e);
 #pragma unroll
-            for (int m = 0; m < 2; ++m) {
-              const int e = e0 + 64 * m;
-              if (e >= D) continue;
-              const float4 k4 = ld4(sK + c * ld + e);
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const float di = at(d4, i);
-                acc[i][4 * m + 0] = fmaf(di, k4.x, acc[i][4 * m + 0]);
-                acc[i][4 * m + 1] = fmaf(di, k4.y, acc[i][4 * m + 1]);
-                acc[i][4 * m + 2] = fmaf(di, k4.z, acc[i][4 * m + 2]);
-                acc[i][4 * m + 3] = fmaf(di, k4.w, acc[i][4 * m + 3]);
-              }
+            for (int i = 0; i < 4; ++i) {
+              const float di = at(d4, i);
+              qacc[i][0] = fmaf(di, k4.x, qacc[i][0]);
+              qacc[i][1] = fmaf(di, k4.y, qacc[i][1]);
+              qacc[i][2] = fmaf(di, k4.z, qacc[i][2]);
+              qacc[i][3] = fmaf(di, k4.w, qacc[i][3]);
             }
           }
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            if (rloc + i >= qv) continue;
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-              const int e = e0 + 64 * m;
-              if (e >= D) continue;
+            if (qloc + i >= qv) continue;
+            {
               const size_t off = (row0 + i) * D + e;
-              float4 val = make_float4(acc[i][4 * m], acc[i][4 * m + 1],
-                                       acc[i][4 * m + 2], acc[i][4 * m + 3]);
+              float4 val = make_float4(qacc[i][0], qacc[i][1], qacc[i][2],
+                                       qacc[i][3]);
               if (!first) {  // earlier chunks' sum, added in chunk order
                 const float4 w = ld4(p.dq_ws + off);
                 val = make_float4(w.x + val.x, w.y + val.y, w.z + val.z,
@@ -548,24 +581,15 @@ flash_bwd_kernel(const Params p) {
       }
     }
 
-    // the chunk's dK and dV rows, at their keys' original indices
-    if (keys_on) {
+    // the chunk's dV (half 0) or dK (half 1) rows, at their keys' original
+    // indices
+    if (k_on && 4 * cg < D) {
       const size_t head_row = static_cast<size_t>(bh0 + khead) * p.Lk;
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        if (cloc + j >= nvc) continue;
-        const size_t row = head_row + sKey[cloc + j];
-#pragma unroll
-        for (int m = 0; m < CV; ++m) {
-          const int e = 4 * lo + 64 * m;
-          if (e >= D) continue;
-          store4<T>(static_cast<T*>(p.dk) + row * D + e,
-                    make_float4(dk_acc[j][4 * m], dk_acc[j][4 * m + 1],
-                                dk_acc[j][4 * m + 2], dk_acc[j][4 * m + 3]));
-          store4<T>(static_cast<T*>(p.dv) + row * D + e,
-                    make_float4(dv_acc[j][4 * m], dv_acc[j][4 * m + 1],
-                                dv_acc[j][4 * m + 2], dv_acc[j][4 * m + 3]));
-        }
+      for (int j = 0; j < 8; ++j) {
+        if (kloc + j >= nvc) continue;
+        store4<T>(dkv + (head_row + sKey[kloc + j]) * D + 4 * cg,
+                  make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]));
       }
     }
   }
@@ -615,7 +639,7 @@ int sola_flash_attn_bwd(const void* q, const void* k, const void* v,
   const int keys = D <= 128 ? Tiling<128>::kKeys : Tiling<256>::kKeys;
   if (D <= 0 || D > 256 || D % 8 != 0 || Lq <= 0 || Lk <= 0 || BH <= 0 ||
       H <= 0 || BH % H != 0 || G <= 0 || H % G != 0 || RH <= 0 ||
-      KH <= 0 || RH % 4 != 0 || KH % 4 != 0 || G * RH > kRows ||
+      KH <= 0 || RH % 4 != 0 || KH % 8 != 0 || G * RH > kRows ||
       G * KH > keys || (Lk > KH && dq_ws == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

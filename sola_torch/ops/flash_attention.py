@@ -212,12 +212,13 @@ def bwd_plan(h: int, lq: int, lk: int, d: int) -> tuple:
     consecutive heads of one batch entry, sharing its mask row), rows of
     each head in a query tile and key slots of each head in a chunk. A
     chunk holds 64 key slots at d <= 128 and 32 above, so that dK and dV
-    fit the registers. Heads are packed when Lq and Lk, rounded up to 4,
-    fit G times into a tile and a chunk (motion_attn's 8 x 8: G = 8);
-    otherwise G = 1 with full tiles and chunks. The keys may span several
-    chunks, and dQ then needs a workspace, only when lk > KH."""
+    fit the registers. Heads are packed when Lq rounded up to 4 and Lk
+    rounded up to 8 (the kernel's micro-tiles) fit G times into a tile and
+    a chunk (motion_attn's 8 x 8: G = 8); otherwise G = 1 with full tiles
+    and chunks. The keys may span several chunks, and dQ then needs a
+    workspace, only when lk > KH."""
     keys = 64 if d <= 128 else 32
-    rh, kh = -(-lq // 4) * 4, -(-lk // 4) * 4
+    rh, kh = -(-lq // 4) * 4, -(-lk // 8) * 8
     g = max((n for n in range(1, h + 1)
              if h % n == 0 and n * rh <= BWD_ROWS and n * kh <= keys),
             default=1)

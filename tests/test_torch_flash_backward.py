@@ -330,4 +330,4 @@ def test_bwd_plan_at_the_selection_sites():
     assert tfa.bwd_plan(8, 512, 128, 128) == (1, 64, 64)
     assert tfa.bwd_plan(8, 70, 90, 256) == (1, 64, 32)
     assert tfa.bwd_plan(8, 8, 8, 256) == (4, 8, 8)
-    assert tfa.bwd_plan(6, 5, 3, 64) == (6, 8, 4)
+    assert tfa.bwd_plan(6, 5, 3, 64) == (6, 8, 8)
