@@ -1941,8 +1941,8 @@ def main() -> None:
     gdino_path = run_gdino_path(fa, di)
     log("phase 7: GroundingDINO small reference")
     gdino_small = run_gdino_small_reference(fa, di)
-    log("phase 8: training attention kernels (forward with dropout, dQ, "
-        "dK/dV) vs their plain versions")
+    log("phase 8: training attention kernels (forward with dropout, fused "
+        "backward) vs their plain versions")
     training_kernels = check_flash_training_kernels(fa, gen)
     log("phase 9: selection training at full width (Pallas route, "
         "RoBERTa-large)")

@@ -48,7 +48,7 @@ _MASK32 = 0xFFFFFFFF
 launches = 0
 bwd_launches = 0
 # query rows of the backward kernel's tile (kRows in csrc/flash_attn_bwd.cu)
-BWD_ROWS = 64
+_BWD_ROWS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -220,10 +220,10 @@ def bwd_plan(h: int, lq: int, lk: int, d: int) -> tuple:
     keys = 64 if d <= 128 else 32
     rh, kh = -(-lq // 4) * 4, -(-lk // 8) * 8
     g = max((n for n in range(1, h + 1)
-             if h % n == 0 and n * rh <= BWD_ROWS and n * kh <= keys),
+             if h % n == 0 and n * rh <= _BWD_ROWS and n * kh <= keys),
             default=1)
     if g == 1:
-        return 1, BWD_ROWS, keys
+        return 1, _BWD_ROWS, keys
     return g, rh, kh
 
 
