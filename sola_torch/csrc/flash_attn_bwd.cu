@@ -64,12 +64,13 @@
 //   quarter-warp's 16-byte loads on distinct banks.
 // - Staging overlapped with the products. fp32 tiles arrive by 16-byte
 //   cp.async (rows past Lq zero-filled). With one 64-row buffer for Q and
-//   dO (two would not fit beside K, V, P and dS at D 128: 237 KB), the next
-//   query tile's copy is issued as soon as dK and dV stop reading Q and dO,
-//   and lands while the block computes the current tile's dQ. bf16 inputs
-//   are widened to fp32 on staging through registers at the same point.
-//   Shared memory: 170,768 bytes at D 128, 217,744 at D 256; one block an
-//   SM.
+//   dO (two would not fit beside K, V, P and dS at D 128: 238,336 bytes),
+//   the next query tile's copy is issued as soon as dK and dV stop reading
+//   Q and dO, and lands while the block computes the current tile's dQ.
+//   bf16 inputs are widened to fp32 on staging through registers at the
+//   same point.
+//   Dynamic shared memory: 170,752 bytes at D 128, 217,728 at D 256; one
+//   block an SM.
 //
 // What is left: one block a head leaves 68 of the 132 SMs idle at
 // object2lang_attn (64 heads) and more where Lk spans several chunks, and
