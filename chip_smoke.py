@@ -1422,18 +1422,18 @@ def selection_attention_cases(gen):
 
 def backward_check_cases(gen):
     """(name, dtype, b, h, lq, lk, d, mask) of the shapes that reach the
-    parts of the fused backward that the selection sites do not: keys that
-    span several chunks (dQ through the fp32 workspace, several query
-    tiles), D 256 in bf16 with a ragged mask (32-slot chunks, two of them),
-    and a batch entry with no valid key (every key takes part)."""
+    parts of the fused backward that the selection sites do not: no mask,
+    with keys that span several chunks (dQ through the fp32 workspace,
+    several query tiles), D 256 in bf16 with a ragged mask (32-slot chunks,
+    two of them), and a batch entry with no valid key (every key takes
+    part)."""
     ragged = (torch.rand(2, 90, generator=gen) < 0.7)
     ragged[:, 0] = True
     tracks = torch.zeros(SEL_B * SEL_T, SEL_N, dtype=torch.bool)
     tracks[:, :40] = True
     tracks[3] = False
     return [
-        ("many_keys", torch.float32, 2, 8, 300, 200, 64,
-         torch.ones(2, 200, dtype=torch.bool).cuda()),
+        ("many_keys", torch.float32, 2, 8, 300, 200, 64, None),
         ("d256_bf16", torch.bfloat16, 2, 8, 70, 90, 256, ragged.cuda()),
         ("no_valid_key", torch.float32, SEL_B * SEL_T, SEL_HEADS, SEL_N,
          SEL_N, SEL_D, tracks.cuda())]
@@ -1494,7 +1494,7 @@ def check_flash_training_kernels(fa, gen) -> dict:
         g, rh, kh = fa.bwd_plan(h, lq, lk, d)
         row = {"shape": name, "site": site, "dtype": str(dtype), "b": b,
                "h": h, "lq": lq, "lk": lk, "d": d,
-               "valid_keys": int(mask.sum()),
+               "valid_keys": b * lk if mask is None else int(mask.sum()),
                "plan": {"heads_a_block": g, "rows_a_head": rh,
                         "key_slots_a_head": kh, "dq_workspace": lk > kh}}
         for rate in (0.0, SEL_RATE):
@@ -1523,10 +1523,12 @@ def check_flash_training_kernels(fa, gen) -> dict:
                                      f"{bad}")
             # masked keys of a batch entry with a valid key: exactly zero
             # dK and dV (an entry with none lets every key take part)
-            kmask = (~mask & mask.any(dim=1, keepdim=True))[
+            kmask = None if mask is None else (
+                ~mask & mask.any(dim=1, keepdim=True))[
                 :, None, :, None].expand(b, h, lk, d)
-            if kmask.any() and (dk.float()[kmask].abs().max() != 0
-                                or dv.float()[kmask].abs().max() != 0):
+            if kmask is not None and kmask.any() and (
+                    dk.float()[kmask].abs().max() != 0
+                    or dv.float()[kmask].abs().max() != 0):
                 raise AssertionError(f"{name}: masked keys get a gradient")
             row[f"fwd_{tag}"] = {"max_abs_err": err, "max_abs_tol": tol,
                                  "rms_err": rms, "rms_tol": rms_tol,
@@ -1551,7 +1553,7 @@ def check_flash_training_kernels(fa, gen) -> dict:
                                      f"backward ({what})")
             row["wrong_rejected_by"][what] = [c[0] for c in caught]
         # times at the training forward's rate
-        attn_mask = mask[:, None, None, :]
+        attn_mask = None if mask is None else mask[:, None, None, :]
         fwd_ms = cuda_ms(lambda: fa._launch(q, k, v, mask, rate, seed), 20)
         fwd_nodrop_ms = cuda_ms(lambda: fa._launch(q, k, v, mask), 20)
         bwd_ms = cuda_ms(lambda: fa._launch_bwd_kernel(*args), 20)

@@ -297,6 +297,7 @@ FUSED_CASES = [
      lambda: torch.ones(1, 150, dtype=torch.bool), (1, 64, 64)),
     ("no_valid_key", 2, 2, 16, 16, 16,
      lambda: _frames_mask(2, 16, [0, 9]), (2, 16, 16)),
+    ("no_mask_several_chunks", 1, 2, 20, 70, 16, lambda: None, (1, 64, 64)),
 ]
 
 
@@ -316,10 +317,10 @@ def test_fused_work_split_matches_plain_backward(case, rate):
     for g, w, n in zip(got, want, ("dq", "dk", "dv")):
         np.testing.assert_allclose(g.numpy(), w.numpy(),
                                    atol=EMULATION_ATOL, rtol=0, err_msg=n)
-    # masked keys of a batch entry with a valid key: exactly zero
-    zero = (~mask & mask.any(dim=1, keepdim=True))[:, None, :, None]
-    for g in got[1:]:
-        assert (g[zero.expand_as(k)] == 0).all()
+    if mask is not None:  # masked keys of an entry with a valid key: 0
+        zero = (~mask & mask.any(dim=1, keepdim=True))[:, None, :, None]
+        for g in got[1:]:
+            assert (g[zero.expand_as(k)] == 0).all()
 
 
 def test_bwd_plan_at_the_selection_sites():
