@@ -157,23 +157,51 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_ops(calls, part: str = "") -> list:
+    """Durations (us) of the device ops whose name holds ``part`` while each
+    callable of ``calls`` runs once under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    return [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and part in e.name]
+
+
+def profiled_ms(make_calls, iters: int, part: str = "") -> tuple:
+    """(device ms a call, records) of the device ops whose name holds
+    ``part`` while the ``iters`` callables of ``make_calls()`` run, from
+    torch.profiler. A trace can drop records (on an H100, a trace of one
+    call held none, and one of 20 calls a third of the kernel time that
+    CUDA events gave), so the traces are repeated until two in a row hold
+    the same nonzero number of records, a multiple of ``iters``; after five
+    traces, the fullest one's mean record times the records a call it
+    implies. (None, 0) if no trace holds such an op."""
+    counts, sums = [], []
+    for _ in range(5):
+        ops = profiled_ops(make_calls(), part)
+        counts.append(len(ops))
+        sums.append(sum(ops))
+        if (len(counts) > 1 and counts[-1] == counts[-2] and counts[-1]
+                and counts[-1] % iters == 0):
+            return (sums[-1] + sums[-2]) / 2 / iters / 1e3, counts[-1]
+    n = max(counts)
+    if not n:
+        return None, 0
+    return sums[counts.index(n)] / n * -(-n // iters) / 1e3, n
+
+
 def device_ms(fn, iters: int, part: str):
     """Device time per call of ``fn`` of the kernels whose name holds
     ``part``, over ``iters`` calls, from torch.profiler: the kernels alone,
     without the host time between launches that cuda_ms also counts when a
     call is shorter than its host work. None if the profiler records no
     such kernel."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ts = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and part in e.name]
-    return sum(ts) / iters / 1e3 if ts else None
+    return profiled_ms(lambda: [fn] * iters, iters, part)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -248,19 +276,25 @@ def alternating_tile_mask(dtype, lk: int, gen) -> torch.Tensor:
     return mask.cuda()
 
 
-def attention_work(b, h, lq, lk, d, mask, itemsize):
-    """(flops, bytes) the function needs on these inputs: the keys that
-    take part (masked keys add exactly zero, except on a fully masked row,
-    which averages all keys), each input read once, each output written
-    once."""
+def keys_taking_part(b, lk, mask) -> int:
+    """Keys that take part, summed over the batch entries: an entry's valid
+    keys (a masked key adds exactly zero and its K and V rows are never
+    needed), or all Lk for an entry with none (a fully masked row averages
+    all keys)."""
     if mask is None:
-        keys = b * lk
-    else:
-        valid = mask.sum(dim=1)
-        keys = int(torch.where(valid > 0, valid,
-                               torch.full_like(valid, lk)).sum())
+        return b * lk
+    valid = mask.sum(dim=1)
+    return int(torch.where(valid > 0, valid, torch.full_like(valid, lk)).sum())
+
+
+def attention_work(b, h, lq, lk, d, mask, itemsize):
+    """(flops, bytes) the function needs on these inputs: 4 FLOPs per
+    (query, key that takes part, d); Q read and O written once, K and V
+    read once over the keys that take part, lse written and the mask read
+    once."""
+    keys = keys_taking_part(b, lk, mask)
     flops = 4.0 * h * lq * d * keys
-    nbytes = (itemsize * (2 * b * h * lq * d + 2 * b * h * lk * d)
+    nbytes = (itemsize * (2 * b * h * lq * d + 2 * h * keys * d)
               + 4 * b * h * lq + (0 if mask is None else b * lk))
     return flops, nbytes
 
@@ -1439,6 +1473,55 @@ def backward_check_cases(gen):
          SEL_N, SEL_D, tracks.cuda())]
 
 
+def backward_cases(gen):
+    """(name, site, dtype, b, h, lq, lk, d, mask) of phase 8: the selection
+    shapes at the model's heads and head dim, then the backward check
+    shapes."""
+    cases = [(name, site, dtype, b, SEL_HEADS, lq, lk, SEL_D, mask)
+             for name, site, dtype, b, lq, lk, mask
+             in selection_attention_cases(gen)]
+    return cases + [(name, "check", dtype, b, h, lq, lk, d, mask)
+                    for name, dtype, b, h, lq, lk, d, mask
+                    in backward_check_cases(gen)]
+
+
+def sdpa_bwd_device_ms(q, k, v, attn_mask, rate, do, iters: int):
+    """SDPA's backward alone: device ms per call of torch.autograd.grad
+    through one scaled_dot_product_attention, from torch.profiler, every
+    device op of the backward counted. The forwards run before each
+    profiled window, so every op in it belongs to the backward."""
+    import torch.nn.functional as F
+
+    def backwards():
+        calls = []
+        for _ in range(iters):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=attn_mask, dropout_p=rate)
+            calls.append(lambda o=out, x=leaves: torch.autograd.grad(o, x, do))
+        torch.cuda.synchronize()
+        return calls
+
+    backwards()[0]()
+    return profiled_ms(backwards, iters)[0]
+
+
+def sdpa_bwd_kernels(q, k, v, attn_mask, rate, do) -> list:
+    """Names of the device ops of SDPA's backward on these inputs (which
+    of its backends ran)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask,
+                                         dropout_p=rate)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+    return sorted({e.name[:120] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def grad_limits_fail(grads, refs, dtype) -> list:
     """The gradients among (dq, dk, dv) that break the limits against the
     fp32 references: [(name, max err, limit, rms err, limit)]."""
@@ -1453,14 +1536,17 @@ def grad_limits_fail(grads, refs, dtype) -> list:
 
 def bwd_work(b, h, lq, lk, d, mask, itemsize) -> tuple:
     """(FLOPs, bytes) of the fused backward on these inputs: 10 FLOPs per
-    (query, key that takes part, d) for S, dP, dQ, dK and dV; Q, K, V and
-    dO read and dQ, dK and dV written once, lse, delta and the mask read
-    once."""
-    flops_fwd, _ = attention_work(b, h, lq, lk, d, mask, itemsize)
+    (query, key that takes part, d) for S, dP, dQ, dK and dV; Q and dO read
+    and dQ written once, K and V read once over the keys that take part
+    (a masked key's dK and dV rows are zeros, written without them), dK and
+    dV written once over all Lk rows, lse, delta and the mask read once."""
+    keys = keys_taking_part(b, lk, mask)
     qo_bytes = b * h * lq * d * itemsize   # q, do, dq: one each
-    kv_bytes = b * h * lk * d * itemsize   # k, v, dk, dv: one each
-    return (10 * flops_fwd / 4.0, 3 * qo_bytes + 4 * kv_bytes
-            + 2 * 4 * b * h * lq + (0 if mask is None else b * lk))
+    kv_read = h * keys * d * itemsize      # k, v: one each
+    kv_write = b * h * lk * d * itemsize   # dk, dv: one each
+    return (10.0 * h * lq * d * keys, 3 * qo_bytes + 2 * kv_read
+            + 2 * kv_write + 2 * 4 * b * h * lq
+            + (0 if mask is None else b * lk))
 
 
 def bound(flops, nbytes, dtype) -> tuple:
@@ -1478,17 +1564,12 @@ def check_flash_training_kernels(fa, gen) -> dict:
     results (the mask of seed + 1, dS without -delta, dV from the
     undropped P). Times each kernel (CUDA events over calls, and the
     backward alone by torch.profiler), its plain version, its bound and a
-    library yardstick (SDPA forward; SDPA's backward = forward + backward -
+    library yardstick (SDPA's forward by call; SDPA's backward alone by
+    torch.profiler, like the kernel, and by call as forward + backward -
     forward)."""
     import torch.nn.functional as F
-    cases = [(name, site, dtype, b, SEL_HEADS, lq, lk, SEL_D, mask)
-             for name, site, dtype, b, lq, lk, mask
-             in selection_attention_cases(gen)]
-    cases += [(name, "check", dtype, b, h, lq, lk, d, mask)
-              for name, dtype, b, h, lq, lk, d, mask
-              in backward_check_cases(gen)]
     rows = []
-    for name, site, dtype, b, h, lq, lk, d, mask in cases:
+    for name, site, dtype, b, h, lq, lk, d, mask in backward_cases(gen):
         q, k, v, do = (torch.randn(b, h, n, d, generator=gen).cuda().to(dtype)
                        for n in (lq, lk, lk, lq))
         g, rh, kh = fa.bwd_plan(h, lq, lk, d)
@@ -1557,8 +1638,12 @@ def check_flash_training_kernels(fa, gen) -> dict:
         fwd_ms = cuda_ms(lambda: fa._launch(q, k, v, mask, rate, seed), 20)
         fwd_nodrop_ms = cuda_ms(lambda: fa._launch(q, k, v, mask), 20)
         bwd_ms = cuda_ms(lambda: fa._launch_bwd_kernel(*args), 20)
-        bwd_device_ms = device_ms(lambda: fa._launch_bwd_kernel(*args), 20,
-                                  "flash_bwd_")
+        bwd_device_ms, bwd_records = profiled_ms(
+            lambda: [lambda: fa._launch_bwd_kernel(*args)] * 20, 20,
+            "flash_bwd_")  # 20 records: one launch a call
+        if bwd_device_ms is None:
+            raise AssertionError(f"{name}: the profiler recorded no "
+                                 f"flash_bwd_ kernel")
         plain_fwd_ms = cuda_ms(lambda: fa.attention_reference(
             q, k, v, mask, rate, seed), 5)
         plain_bwd_ms = cuda_ms(lambda: fa.attention_bwd_reference(
@@ -1572,7 +1657,9 @@ def check_flash_training_kernels(fa, gen) -> dict:
                 qg, kg, vg, attn_mask=attn_mask,
                 dropout_p=rate).backward(do)
 
-        sdpa_bwd_ms = max(cuda_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms, 0.0)
+        sdpa_bwd_by_call_ms = max(cuda_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms,
+                                  0.0)
+        sdpa_bwd_ms = sdpa_bwd_device_ms(q, k, v, attn_mask, rate, do, 20)
         item = q.element_size()
         flops_fwd, bytes_fwd = attention_work(b, h, lq, lk, d, mask, item)
         work = {"fwd": (flops_fwd, bytes_fwd),
@@ -1586,7 +1673,11 @@ def check_flash_training_kernels(fa, gen) -> dict:
             row[kern] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                          "bound_ms": least, "bound_by": by,
                          "gflops": flops / ms / 1e6}
-        row["bwd"]["device_ms"] = bwd_device_ms
+        row["bwd"].update(device_ms=bwd_device_ms,
+                          device_records=bwd_records,
+                          library_by_call_ms=sdpa_bwd_by_call_ms,
+                          library_kernels=sdpa_bwd_kernels(
+                              q, k, v, attn_mask, rate, do))
         rows.append(row)
         drop = row["fwd_drop"]
         log(f"  {name:>21} {str(dtype)[6:]} bh={b}x{h} lq={lq} lk={lk} "
@@ -1600,12 +1691,15 @@ def check_flash_training_kernels(fa, gen) -> dict:
         log(f"    fwd at rate 0: kernel {fwd_nodrop_ms:.4f} ms")
         for kern in ("fwd", "bwd"):
             r = row[kern]
-            alone = (f" (alone {r['device_ms']:.4f} ms)"
-                     if r.get("device_ms") is not None else "")
-            log(f"    {kern:>3} at rate {rate}: kernel {r['ms']:.4f} ms"
-                f"{alone}, plain {r['plain_ms']:.4f} ms, library "
-                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}), {r['gflops']:.1f} GFLOP/s")
+            kernel, library = f"{r['ms']:.4f} ms", f"{r['library_ms']:.4f} ms"
+            if kern == "bwd":
+                kernel = f"{r['device_ms']:.4f} ms alone ({kernel} by call)"
+                library = (f"{library} alone ({r['library_by_call_ms']:.4f}"
+                           f" ms by call)")
+            log(f"    {kern:>3} at rate {rate}: kernel {kernel}, plain "
+                f"{r['plain_ms']:.4f} ms, library {library}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{r['gflops']:.1f} GFLOP/s")
         del (q, k, v, do, out, lse, delta, args, dq, dk, dv, refs, wrong,
              qg, kg, vg)
     torch.cuda.empty_cache()
@@ -1992,9 +2086,11 @@ def main() -> None:
                            for r in training_kernels["rows"]
                            for g in ("dq", "dk", "dv")
                            for t in ("nodrop", "drop")),
-        **{k: thead["bwd"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms",
-                                        "device_ms")},
+        # the kernel alone beside SDPA's backward alone (torch.profiler),
+        # and both by call (CUDA events)
+        "ms": thead["bwd"]["device_ms"], "ms_by_call": thead["bwd"]["ms"],
+        **{k: thead["bwd"][k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "library_by_call_ms")},
         "at": f"{thead['shape']}, dropout {SEL_RATE}",
         "launches_by_path": {"train": training["launches"]["flash_attn_bwd"]},
         "shapes": [{"shape": r["shape"], "plan": r["plan"], **r["bwd"]}

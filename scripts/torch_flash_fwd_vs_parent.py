@@ -117,12 +117,8 @@ def bwd_worker(root: str) -> None:
     cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
-    cases = [(name, dtype, b, cs.SEL_HEADS, lq, lk, cs.SEL_D, mask)
-             for name, _, dtype, b, lq, lk, mask
-             in cs.selection_attention_cases(gen)]
-    cases += cs.backward_check_cases(gen)
     runs = []  # (name, q, k, v, do, mask)
-    for name, dtype, b, h, lq, lk, d, mask in cases:
+    for name, _, dtype, b, h, lq, lk, d, mask in cs.backward_cases(gen):
         runs.append((name, *(torch.randn(b, h, n, d, generator=gen).cuda()
                              .to(dtype) for n in (lq, lk, lk, lq)), mask))
     sys.path.insert(0, root)

@@ -47,8 +47,10 @@ _MASK32 = 0xFFFFFFFF
 # them before a path and reads them after): the forward and the backward
 launches = 0
 bwd_launches = 0
-# query rows of the backward kernel's tile (kRows in csrc/flash_attn_bwd.cu)
+# the backward kernel's tile (csrc/flash_attn_bwd.cu): query rows (kRows),
+# and key slots of a chunk at d <= 128 and at d <= 256 (Tiling<D>::kKeys)
 _BWD_ROWS = 64
+_BWD_KEYS = {128: 64, 256: 32}
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +219,7 @@ def bwd_plan(h: int, lq: int, lk: int, d: int) -> tuple:
     a chunk (motion_attn's 8 x 8: G = 8); otherwise G = 1 with full tiles
     and chunks. The keys may span several chunks, and dQ then needs a
     workspace, only when lk > KH."""
-    keys = 64 if d <= 128 else 32
+    keys = _BWD_KEYS[128 if d <= 128 else 256]
     rh, kh = -(-lq // 4) * 4, -(-lk // 8) * 8
     g = max((n for n in range(1, h + 1)
              if h % n == 0 and n * rh <= _BWD_ROWS and n * kh <= keys),
