@@ -173,9 +173,9 @@ def profiled_ops(calls, part: str = "") -> list:
 def profiled_ms(make_calls, iters: int, part: str = "") -> tuple:
     """(device ms a call, records) of the device ops whose name holds
     ``part`` while the ``iters`` callables of ``make_calls()`` run, from
-    torch.profiler. A trace can drop records (on an H100, a trace of one
-    call held none, and one of 20 calls a third of the kernel time that
-    CUDA events gave), so the traces are repeated until two in a row hold
+    torch.profiler. A trace can drop records (on an H100, many traces of
+    20 one-kernel calls held 18 or 19, one held 7, and a trace of one call
+    could hold none), so the traces are repeated until two in a row hold
     the same nonzero number of records, a multiple of ``iters``; after five
     traces, the fullest one's mean record times the records a call it
     implies. (None, 0) if no trace holds such an op."""
@@ -1508,15 +1508,19 @@ def sdpa_bwd_device_ms(q, k, v, attn_mask, rate, do, iters: int):
 
 def sdpa_bwd_kernels(q, k, v, attn_mask, rate, do) -> list:
     """Names of the device ops of SDPA's backward on these inputs (which
-    of its backends ran)."""
+    of its backends ran), from a trace of five backwards, since a trace of
+    one can lose its records."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask,
-                                         dropout_p=rate)
+    graphs = []
+    for _ in range(5):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        graphs.append((F.scaled_dot_product_attention(
+            *leaves, attn_mask=attn_mask, dropout_p=rate), leaves))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.autograd.grad(out, leaves, do)
+        for out, leaves in graphs:
+            torch.autograd.grad(out, leaves, do)
         torch.cuda.synchronize()
     return sorted({e.name[:120] for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA})
