@@ -158,39 +158,44 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def profiled_ops(calls, part: str = "") -> list:
-    """Durations (us) of the device ops whose name holds ``part`` while each
+    """(name, us) of the device ops whose name holds ``part`` while each
     callable of ``calls`` runs once under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for call in calls:
             call()
         torch.cuda.synchronize()
-    return [e.time_range.end - e.time_range.start for e in prof.events()
+    return [(e.name, e.time_range.end - e.time_range.start)
+            for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and part in e.name]
 
 
-def profiled_ms(make_calls, iters: int, part: str = "") -> tuple:
-    """(device ms a call, records) of the device ops whose name holds
-    ``part`` while the ``iters`` callables of ``make_calls()`` run, from
-    torch.profiler. A trace can drop records (on an H100, many traces of
-    20 one-kernel calls held 18 or 19, one held 7, and a trace of one call
-    could hold none), so the traces are repeated until two in a row hold
-    the same nonzero number of records, a multiple of ``iters``; after five
-    traces, the fullest one's mean record times the records a call it
-    implies. (None, 0) if no trace holds such an op."""
-    counts, sums = [], []
-    for _ in range(5):
+def profiled_ms(make_calls, iters: int, part: str = "",
+                traces: int = 3) -> tuple:
+    """(device ms a call, records of the fullest trace) of the device ops
+    whose name holds ``part`` while the ``iters`` callables of
+    ``make_calls()`` run, over ``traces`` torch.profiler traces. A trace
+    can drop records (on an H100, traces of 20 one-kernel calls often held
+    18 or 19 and once 7, a trace of one call could hold none, and a trace
+    of SDPA's backward lost enough of its main kernel to sum to half its
+    time), so each op name counts its mean duration over all the traces
+    times its launches a call: the most records of that name in one trace
+    over ``iters``, rounded up. (None, 0) if no trace holds such an op."""
+    durations, most, records = {}, {}, 0
+    for _ in range(traces):
         ops = profiled_ops(make_calls(), part)
-        counts.append(len(ops))
-        sums.append(sum(ops))
-        if (len(counts) > 1 and counts[-1] == counts[-2] and counts[-1]
-                and counts[-1] % iters == 0):
-            return (sums[-1] + sums[-2]) / 2 / iters / 1e3, counts[-1]
-    n = max(counts)
-    if not n:
+        records = max(records, len(ops))
+        counts = {}
+        for name, us in ops:
+            durations.setdefault(name, []).append(us)
+            counts[name] = counts.get(name, 0) + 1
+        for name, n in counts.items():
+            most[name] = max(most.get(name, 0), n)
+    if not durations:
         return None, 0
-    return sums[counts.index(n)] / n * -(-n // iters) / 1e3, n
+    return sum(sum(d) / len(d) * -(-most[name] // iters)
+               for name, d in durations.items()) / 1e3, records
 
 
 def device_ms(fn, iters: int, part: str):
@@ -1485,45 +1490,35 @@ def backward_cases(gen):
                     in backward_check_cases(gen)]
 
 
-def sdpa_bwd_device_ms(q, k, v, attn_mask, rate, do, iters: int):
-    """SDPA's backward alone: device ms per call of torch.autograd.grad
-    through one scaled_dot_product_attention, from torch.profiler, every
-    device op of the backward counted. The forwards run before each
-    profiled window, so every op in it belongs to the backward."""
+def sdpa_backwards(q, k, v, attn_mask, rate, do, n: int) -> list:
+    """n callables, each torch.autograd.grad through its own forward of
+    scaled_dot_product_attention, which runs here: a trace around the
+    callables holds the backwards' device ops alone."""
     import torch.nn.functional as F
+    calls = []
+    for _ in range(n):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask,
+                                             dropout_p=rate)
+        calls.append(lambda o=out, x=leaves: torch.autograd.grad(o, x, do))
+    torch.cuda.synchronize()
+    return calls
 
-    def backwards():
-        calls = []
-        for _ in range(iters):
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = F.scaled_dot_product_attention(
-                *leaves, attn_mask=attn_mask, dropout_p=rate)
-            calls.append(lambda o=out, x=leaves: torch.autograd.grad(o, x, do))
-        torch.cuda.synchronize()
-        return calls
 
-    backwards()[0]()
-    return profiled_ms(backwards, iters)[0]
+def sdpa_bwd_device_ms(q, k, v, attn_mask, rate, do, iters: int) -> tuple:
+    """SDPA's backward alone: (device ms per call, records of the fullest
+    trace), every device op of the backward counted (profiled_ms)."""
+    args = (q, k, v, attn_mask, rate, do)
+    sdpa_backwards(*args, 1)[0]()
+    return profiled_ms(lambda: sdpa_backwards(*args, iters), iters)
 
 
 def sdpa_bwd_kernels(q, k, v, attn_mask, rate, do) -> list:
     """Names of the device ops of SDPA's backward on these inputs (which
     of its backends ran), from a trace of five backwards, since a trace of
     one can lose its records."""
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
-    graphs = []
-    for _ in range(5):
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        graphs.append((F.scaled_dot_product_attention(
-            *leaves, attn_mask=attn_mask, dropout_p=rate), leaves))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for out, leaves in graphs:
-            torch.autograd.grad(out, leaves, do)
-        torch.cuda.synchronize()
-    return sorted({e.name[:120] for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    return sorted({name[:120] for name, _ in profiled_ops(
+        sdpa_backwards(q, k, v, attn_mask, rate, do, 5))})
 
 
 def grad_limits_fail(grads, refs, dtype) -> list:
@@ -1663,7 +1658,8 @@ def check_flash_training_kernels(fa, gen) -> dict:
 
         sdpa_bwd_by_call_ms = max(cuda_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms,
                                   0.0)
-        sdpa_bwd_ms = sdpa_bwd_device_ms(q, k, v, attn_mask, rate, do, 20)
+        sdpa_bwd_ms, sdpa_bwd_records = sdpa_bwd_device_ms(
+            q, k, v, attn_mask, rate, do, 20)
         item = q.element_size()
         flops_fwd, bytes_fwd = attention_work(b, h, lq, lk, d, mask, item)
         work = {"fwd": (flops_fwd, bytes_fwd),
@@ -1680,6 +1676,7 @@ def check_flash_training_kernels(fa, gen) -> dict:
         row["bwd"].update(device_ms=bwd_device_ms,
                           device_records=bwd_records,
                           library_by_call_ms=sdpa_bwd_by_call_ms,
+                          library_records=sdpa_bwd_records,
                           library_kernels=sdpa_bwd_kernels(
                               q, k, v, attn_mask, rate, do))
         rows.append(row)
