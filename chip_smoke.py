@@ -80,6 +80,7 @@ import dataclasses
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -179,9 +180,11 @@ def profiled_ms(make_calls, iters: int, part: str = "",
     can drop records (on an H100, traces of 20 one-kernel calls often held
     18 or 19 and once 7, a trace of one call could hold none, and a trace
     of SDPA's backward lost enough of its main kernel to sum to half its
-    time), so each op name counts its mean duration over all the traces
-    times its launches a call: the most records of that name in one trace
-    over ``iters``, rounded up. (None, 0) if no trace holds such an op."""
+    time), and a record can carry a wrong duration (the mean of three
+    traces once read 0.41 ms for a kernel that took 0.33 by CUDA events),
+    so each op name counts its median duration over all the traces times
+    its launches a call: the most records of that name in one trace over
+    ``iters``, rounded up. (None, 0) if no trace holds such an op."""
     durations, most, records = {}, {}, 0
     for _ in range(traces):
         ops = profiled_ops(make_calls(), part)
@@ -194,7 +197,7 @@ def profiled_ms(make_calls, iters: int, part: str = "",
             most[name] = max(most.get(name, 0), n)
     if not durations:
         return None, 0
-    return sum(sum(d) / len(d) * -(-most[name] // iters)
+    return sum(statistics.median(d) * -(-most[name] // iters)
                for name, d in durations.items()) / 1e3, records
 
 
