@@ -67,6 +67,20 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    card and on the CPU; log.txt numbers within a tolerance and equal
    confusion counts; a third card run with dS planted without its -delta
    must break that agreement.
+11. The grid path from video to J&F: 2 synthetic 12-frame 480x854 videos
+   as JPEGs in a MeViS valid_u layout; prompts_grid.main at SAM2 hiera-L
+   (32 x 32 points, 256 a chunk, bin 4; IoU and stability gates set from
+   the random model's scores on the first frame), tokens_grid.main on its
+   prompt JSONs, then cli.eval and cli.inference with a seeded random
+   SelectionConfig() checkpoint, random RoBERTa-large and the flash
+   attention route. Checks the prompt JSONs, tracks, J&F JSONs and PNGs,
+   and the flash launches (3 per binned frame in the AMG, some in eval);
+   prompt frames/s with a warm AMG frame's breakdown, object-fps, eval and
+   inference seconds, peak memory.
+12. A small reference for that path at SAM2Config.tiny_test: the AMG's
+   records on the card against the CPU, generate_many against generate
+   and the overflow fallback against the single pass on the card
+   (exactly), and the eval JSONs and PNGs on the card against the CPU.
 
 The second-to-last line is a JSON object listing every ported kernel; the
 line before it is the card's name and power limit; the last line is
@@ -239,6 +253,9 @@ def attention_cases(gen):
               memory_cross_mask(4, gen)),
              ("memory_self", "memory", bf16, 4, 1, 4096, 4096, 256, None),
              ("hiera_l_global", "hiera", fp32, 4, 8, 4096, 4096, 72, None),
+             # the image predictor's batch-1 encode (the AMG, gdino prompts)
+             ("hiera_l_global_b1", "hiera", fp32, 1, 8, 4096, 4096, 72,
+              None),
              ("hiera_l_global_bf16", "check", bf16, 4, 8, 4096, 4096, 72,
               None)]
     for d in (56, 96):
@@ -804,8 +821,9 @@ def profile_forward(fn, kernels_of=(("deform", "ms_deform"),)) -> dict:
     """One warm run of ``fn`` under torch.profiler: the device's busy time
     (the union of its kernels' intervals) against the host's wall time of
     the run, and for each (label, name part) of ``kernels_of`` the time of
-    the kernels whose name holds that part and its share of the busy time.
-    None where the profiler records no device kernel."""
+    the kernels whose name holds that part and its share of the busy time,
+    and the 8 kernel names that take the most time. None where the profiler
+    records no device kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -826,8 +844,12 @@ def profile_forward(fn, kernels_of=(("deform", "ms_deform"),)) -> dict:
     for s, e, _ in kernels:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
+    by_name = {}
+    for s, e, n in kernels:
+        by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e3
     out = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-           "idle_share": 1.0 - busy / wall_us, "kernels": len(kernels)}
+           "idle_share": 1.0 - busy / wall_us, "kernels": len(kernels),
+           "top_kernels_ms": sorted(by_name.items(), key=lambda x: -x[1])[:8]}
     for label, part in kernels_of:
         t = sum(e - s for s, e, n in kernels if part in n)
         out[f"{label}_ms"] = t / 1e3
@@ -1050,21 +1072,12 @@ def run_gdino_small_reference(fa, di) -> dict:
     equal and whose tracks must agree."""
     from sola_torch.trackgen.gdino.model import (GDINOConfig,
                                                  load_grounding_dino)
-    from sola_torch.trackgen.sam2 import hiera, memory
     from sola_torch.trackgen.sam2.convert import (build_sam2,
                                                   load_sam2_image_predictor)
     from sola_torch.trackgen.sam2.model import SAM2Config
     from sola_torch.trackgen.sam2.video import SAM2VideoPredictor
     frames, masks = _small_frames()
     vid, hw = "small_gdino", frames[0].shape[:2]
-
-    def fused_everywhere(model):
-        for m in model.modules():
-            if isinstance(m, hiera.MultiScaleAttention):
-                m.fused_min_tokens = 1
-            if isinstance(m, memory.RoPEAttention):
-                m.fused_min_keys = 1
-        return model
 
     runs, box_thr, stab_thr, ref_info = {}, None, None, None
     for device in ("cpu", "cuda"):
@@ -1318,7 +1331,6 @@ def run_small_reference(fa) -> dict:
     from sola_torch.core import rle
     from sola_torch.data import tracks
     from sola_torch.trackgen import tokens_grid
-    from sola_torch.trackgen.sam2 import hiera, memory
     from sola_torch.trackgen.sam2.convert import build_sam2
     from sola_torch.trackgen.sam2.model import SAM2Config
     from sola_torch.trackgen.sam2.video import SAM2VideoPredictor
@@ -1341,13 +1353,8 @@ def run_small_reference(fa) -> dict:
             for i, m in enumerate((a, b))]}, f)
     results = {}
     for device in ("cuda", "cpu"):
-        model = build_sam2(cfg=SAM2Config.tiny_test(s), seed=3,
-                           device=device)
-        for m in model.modules():
-            if isinstance(m, hiera.MultiScaleAttention):
-                m.fused_min_tokens = 1
-            if isinstance(m, memory.RoPEAttention):
-                m.fused_min_keys = 1
+        model = fused_everywhere(build_sam2(cfg=SAM2Config.tiny_test(s),
+                                            seed=3, device=device))
         pred = SAM2VideoPredictor(model, obj_batch=2,
                                   feature_dtype=torch.float32,
                                   compute_dtype=torch.float32)
@@ -1993,6 +2000,635 @@ def run_selection_small_reference(fa) -> dict:
             "ds_without_delta_max_abs_log_err": fault_err}
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the grid path from video to J&F, prompts_grid ->
+# tokens_grid -> eval / inference
+# ---------------------------------------------------------------------------
+
+GRID_BIN = 4
+# per video: expression "0" refers to object 0, "1" to object 2
+GRID_EXPRESSIONS = {"0": ("the red box moving right", 0),
+                    "1": ("the blue square moving up", 2)}
+AMG_KEEP = 24                 # proposals the first frame's gates pass
+SAM2_CKPT = "pretrained_models/sam2_hiera_large.pt"  # absent: random
+GRID_PROMPT_KEYS = {"segmentation", "stability_score", "area", "area_ratio",
+                    "frame_idx", "prompt_id"}
+
+
+def write_grid_corpus(root: str, videos) -> None:
+    """A MeViS-layout valid_u split: JPEG frames, meta_expressions.json with
+    GRID_EXPRESSIONS for each video, and mask_dict.json with each object's
+    per-frame RLE (3 objects a video, anno ids counted across videos)."""
+    from PIL import Image
+
+    from sola_torch.core import rle
+    data_dir = os.path.join(root, "datasets", "mevis", "valid_u")
+    meta, mask_dict = {"videos": {}}, {}
+    for v, (vid, frames, masks) in enumerate(videos):
+        frames_dir = os.path.join(data_dir, "JPEGImages", vid)
+        os.makedirs(frames_dir)
+        for t, f in enumerate(frames):
+            Image.fromarray(f).save(os.path.join(frames_dir, f"{t:05d}.jpg"))
+        base = 3 * v
+        meta["videos"][vid] = {
+            "frames": [f"{t:05d}" for t in range(len(frames))],
+            "expressions": {e: {"exp": text, "anno_id": [base + obj]}
+                            for e, (text, obj) in GRID_EXPRESSIONS.items()}}
+        for obj in range(3):
+            mask_dict[str(base + obj)] = [rle.encode(m[obj]) for m in masks]
+    with open(os.path.join(data_dir, "meta_expressions.json"), "w") as f:
+        json.dump(meta, f)
+    with open(os.path.join(data_dir, "mask_dict.json"), "w") as f:
+        json.dump(mask_dict, f)
+
+
+def gap_gate(values, lo_q: float, hi_q: float) -> float:
+    """Midpoint of the widest gap between neighbouring distinct values from
+    the ``lo_q`` to the ``hi_q`` quantile of the distinct values: no value
+    sits near it."""
+    v = np.unique(np.asarray(values, np.float64))
+    v = v[max(int(lo_q * len(v)), 0):int(hi_q * len(v)) + 1]
+    if len(v) < 2:
+        raise AssertionError(f"no gap between quantiles {lo_q} and {hi_q}")
+    i = int(np.argmax(np.diff(v)))
+    return float(0.5 * (v[i] + v[i + 1]))
+
+
+def probe_scores(pred, frames, side: int) -> tuple:
+    """(IoUs, stabilities) of every proposal over the side x side grid on
+    each frame, 256 points at a time."""
+    from sola_torch.trackgen.sam2.amg import build_point_grid
+    ious, stabs = [], []
+    for frame in frames:
+        h, w = frame.shape[:2]
+        pred.set_image(frame)
+        pts = build_point_grid(side) * np.asarray([w, h], np.float32)
+        for i in range(0, len(pts), 256):
+            iou, stab, _ = pred.propose(pts[i:i + 256, None])
+            ious.append(iou.ravel())
+            stabs.append(stab.ravel())
+    return np.concatenate(ious), np.concatenate(stabs)
+
+
+class FallbackCounter:
+    """Counts the AMG's overflow fallbacks, each of which encodes its frame
+    again (3 more flash launches at hiera-L)."""
+
+    def __init__(self, amg):
+        self.n = 0
+        inner = amg._generate_multi_dispatch
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return inner(*args, **kwargs)
+        amg._generate_multi_dispatch = counted
+
+
+def check_grid_prompt_json(info: dict, vid: str, n_frames: int, hw) -> int:
+    """The grid prompt JSON's schema and invariants; returns its prompt
+    count."""
+    from sola_torch.core import rle
+    pms = info["prompt_masks"]
+    if info["video_id"] != vid or info["bin_size"] != GRID_BIN or not pms:
+        raise AssertionError(f"prompt JSON head: {info['video_id']} "
+                             f"{info['bin_size']} {len(pms)} prompts")
+    for i, p in enumerate(pms):
+        m = rle.decode(p["segmentation"])
+        if (set(p) != GRID_PROMPT_KEYS or p["prompt_id"] != i
+                or p["frame_idx"] % GRID_BIN or p["frame_idx"] >= n_frames
+                or m.shape != tuple(hw) or m.sum() != p["area"]
+                or not 0.0 <= p["stability_score"] <= 1.0
+                or abs(p["area_ratio"] - p["area"] / m.size) > 1e-9):
+            raise AssertionError(f"prompt {i} breaks the schema: "
+                                 f"{ {k: v for k, v in p.items() if k != 'segmentation'} }")
+    areas = [p["area"] for p in pms]
+    if areas != sorted(areas, reverse=True):
+        raise AssertionError("prompts are not sorted by area")
+    return len(pms)
+
+
+def amg_breakdown(amg, frame) -> dict:
+    """Where a warm AMG frame's time goes at the path's shapes: the encode,
+    the whole-grid propose/filter, the finalize of the survivors' prefix,
+    and the host phase (NMS, the kept masks' fetch, the records); a whole
+    ``generate``; and one profiled ``generate``."""
+    from sola_torch.trackgen.sam2.amg import build_point_grid
+    pred = amg.predictor
+    h, w = frame.shape[:2]
+    coords = build_point_grid(amg.points_per_side) * np.asarray(
+        [w, h], np.float32)
+
+    def propose():
+        return pred.propose_filter(
+            coords[:, None], amg.stability_score_offset,
+            amg.pred_iou_thresh, amg.stability_score_thresh,
+            chunk=amg.points_per_batch, k_max=amg.max_survivors)
+
+    out = {"encode_ms": host_ms(lambda: pred.set_image(frame)),
+           "propose_filter_ms": host_ms(propose)}
+    proposal = propose()
+    low, n_valid = proposal[1], int(proposal[-1])
+    k_fin = min(low.shape[0], max(64, 1 << max(n_valid - 1, 0).bit_length()))
+    out["survivors"] = n_valid
+    out["finalize_ms"] = host_ms(lambda: pred.finalize_masks_dispatch(
+        low, h, w, k_fin=k_fin))
+    host = []
+    for _ in range(3):
+        fin = amg._dispatch_finalize(amg._enqueue(frame))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        amg._finish(fin)
+        host.append((time.perf_counter() - t0) * 1e3)
+    out["host_ms"] = statistics.median(host)
+    out["generate_ms"] = host_ms(lambda: amg.generate(frame))
+    out["generate_profile"] = profile_forward(
+        lambda: amg.generate(frame), kernels_of=(("flash_fwd", "flash_fwd_"),))
+    return out
+
+
+def grid_configs(root: str, exp_name: str, model: dict) -> str:
+    """configs/mevis/default.yaml over the phase's corpus and tracks (the
+    valid and test splits both valid_u, grid_tracks only), written next to
+    them; returns the YAML's path."""
+    import yaml
+
+    from sola_torch import config as config_lib
+    configs = config_lib.load_config("mevis/default")
+    configs["exp_name"] = exp_name
+    configs["model"].update(model)
+    split = {"data_name": "mevis", "data_type": "valid_u",
+             "sam2_output_dirs": "grid_tracks", "batch_size": 1}
+    configs["dataset"] = {
+        "data_root": os.path.join(root, "datasets"),
+        "track_root": os.path.join(root, "sam2_tracks"), "num_workers": 2,
+        "train": dict(split), "valid": dict(split), "test": dict(split)}
+    configs["results"] = {k: os.path.join(root, v) for k, v in (
+        ("output_dir", "TRAIN"), ("eval_output_dir", "EVAL"),
+        ("test_output_dir", "INFERENCE"))}
+    path = os.path.join(root, f"{exp_name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(configs, f)
+    return path
+
+
+def save_selection_checkpoint(yaml_path: str, seed: int) -> None:
+    """A seeded random selection model of the YAML's config as
+    ``epoch_0.pth`` in its train output dir."""
+    from sola_torch import config as config_lib
+    from sola_torch.models.selection import SelectionConfig
+    from sola_torch.train.loop import build_model
+    configs = config_lib.load_config(yaml_path)
+    model = build_model(SelectionConfig.from_dict(configs["model"]), "cpu",
+                        seed=seed)
+    out = config_lib.train_output_dir(configs)
+    os.makedirs(out, exist_ok=True)
+    torch.save(model.state_dict(), os.path.join(out, "epoch_0.pth"))
+
+
+def eval_outputs(yaml_path: str, device: str, extra=()) -> dict:
+    """Both eval CLIs at epoch 0 on ``device``: their wall seconds and
+    flash launches, the two eval JSONs and the inference PNGs' digests."""
+    import hashlib
+
+    from sola_torch import config as config_lib
+    from sola_torch.cli import eval as eval_cli
+    from sola_torch.cli import inference as inference_cli
+    from sola_torch.ops import flash_attention as fa
+    argv = ["--config", yaml_path, "--eval_weight_epoch", "0",
+            "--device", device, *extra]
+    out = {}
+    for name, main in (("eval", eval_cli.main),
+                       ("inference", inference_cli.main)):
+        _sync(device)
+        fa.launches = 0  # this CLI's count starts here
+        t0 = time.perf_counter()
+        main(argv)
+        _sync(device)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_launches"] = fa.launches  # read right after
+    configs = config_lib.load_config(yaml_path)
+    eval_dir = config_lib.eval_output_dir(configs, 0.5, 0)
+    for key, name in (("metrics", "valid_u_metrics_0epoch.json"),
+                      ("jf", "valid_u_JF_metrics_0epoch.json")):
+        with open(os.path.join(eval_dir, name)) as f:
+            out[key] = json.load(f)
+    png_dir = config_lib.inference_output_dir(configs, 0.5, 0)
+    out["pngs"] = {}
+    for d, _, files in os.walk(png_dir):
+        for name in files:
+            with open(os.path.join(d, name), "rb") as f:
+                out["pngs"][os.path.relpath(os.path.join(d, name),
+                                            png_dir)] = hashlib.sha256(
+                    f.read()).hexdigest()
+    return out
+
+
+def check_jf(out: dict, n_expressions: int) -> None:
+    jf = out["jf"]
+    vals = [e[k] for v in jf.values() for e in v.values()
+            for k in ("J", "F", "JF")]
+    vals += [out["metrics"][k] for k in ("mean_J", "mean_F", "mean_JF")]
+    if (sum(len(v) for v in jf.values()) != n_expressions
+            or not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in vals)):
+        raise AssertionError(f"J&F JSON: {jf}")
+
+
+def run_grid_main_path(fa) -> dict:
+    """Phase 11: the grid path from video to J&F at SAM2 hiera-L and
+    SelectionConfig(): prompts_grid.main (32 x 32 points, 256 a chunk,
+    bin 4) -> tokens_grid.main -> cli.eval and cli.inference with the
+    flash attention route, on 2 synthetic 12-frame 480x854 videos."""
+    from sola_torch.core import rle
+    from sola_torch.data import tracks
+    from sola_torch.trackgen import prompts_grid, tokens_grid
+    from sola_torch.trackgen.sam2.amg import SAM2AutomaticMaskGenerator
+    from sola_torch.trackgen.sam2.convert import load_sam2_image_predictor
+    root = os.path.join(OUT_DIR, "grid")
+    videos = []
+    for i in range(2):
+        frames, masks = synthetic_video(10 + i)
+        videos.append((f"grid{i}", frames, masks))
+    write_grid_corpus(root, videos)
+    t0 = time.perf_counter()
+    image_pred = load_sam2_image_predictor(SAM2_CKPT, device="cuda")
+    video_pred = tokens_grid._default_predictor_factory(
+        SAM2_CKPT, obj_batch=4, device="cuda")()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the gates' probe warms the image predictor up
+    # gates from the first frame's scores (the probe warms the predictor
+    # up): stability in the top sixth to third of its distinct values, IoU
+    # then passing AMG_KEEP / 2 to 2 x AMG_KEEP distinct values of those
+    ious, stabs = probe_scores(image_pred, videos[0][1][:1], 32)
+    stab_t = gap_gate(stabs, 2 / 3, 5 / 6)
+    passing = np.unique(ious[stabs > stab_t])
+    iou_t = gap_gate(passing, 1 - 2 * AMG_KEEP / len(passing),
+                     1 - AMG_KEEP / 2 / len(passing))
+    amg = SAM2AutomaticMaskGenerator(image_pred, points_per_side=32,
+                                     points_per_batch=256,
+                                     pred_iou_thresh=iou_t,
+                                     stability_score_thresh=stab_t)
+    fallbacks = FallbackCounter(amg)
+    argv = ["--data_root", root, "--output_root", root, "--bin_size",
+            str(GRID_BIN), "--device", "cuda"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0  # prompts_grid's count starts here
+    t0 = time.perf_counter()
+    prompts_grid.main(argv, amg_factory=lambda: amg)
+    torch.cuda.synchronize()
+    prompts_s = time.perf_counter() - t0
+    amg_launches = fa.launches  # read right after
+    binned = len(videos) * len(range(0, T_FRAMES, GRID_BIN))
+    # one launch per global attention block per encode: 3 at hiera-L
+    per_encode = len(image_pred.cfg.image_encoder.hiera.global_att_blocks)
+    if amg_launches != per_encode * (binned + fallbacks.n):
+        raise AssertionError(f"flash launches in the AMG: {amg_launches}, "
+                             f"want {per_encode} x ({binned} binned frames "
+                             f"+ {fallbacks.n} fallbacks)")
+    n_prompts = {}
+    for vid, _, _ in videos:
+        with open(os.path.join(root, "sam2_prompts", "grid_prompts", "mevis",
+                               "valid_u", f"{vid}.json")) as f:
+            n_prompts[vid] = check_grid_prompt_json(json.load(f), vid,
+                                                    T_FRAMES, (H_VID, W_VID))
+
+    fa.launches = 0  # tokens_grid's count starts here
+    t0 = time.perf_counter()
+    tokens_grid.main(argv + ["--batch_size", "4", "--save_prec_rec_iou"],
+                     predictor_factory=lambda: video_pred)
+    torch.cuda.synchronize()
+    tokens_s = time.perf_counter() - t0
+    tokens_launches = fa.launches
+    with open(os.path.join(root, "sam2_tracks", "grid_tracks", "mevis",
+                           "valid_u", f"runtime_info_{GRID_BIN}.json")) as f:
+        census = json.load(f)
+    for vid, _, _ in videos:
+        check_tracks(os.path.join(root, "sam2_tracks"), vid, census[vid],
+                     tracks, rle, video_pred.cfg.d_model)
+    tracked = sum(c["n_tracked"] for c in census.values())
+    track_s = sum(c["time"] for c in census.values())
+    if tokens_launches == 0:
+        raise AssertionError("no flash launch in tokens_grid")
+
+    yaml_path = grid_configs(root, "grid_main_path",
+                             {"text_encoder": "roberta_random"})
+    save_selection_checkpoint(yaml_path, seed=0)
+    ev = eval_outputs(yaml_path, "cuda",
+                      extra=("--model.use_pallas_attention", "true"))
+    n_expr = len(videos) * len(GRID_EXPRESSIONS)
+    check_jf(ev, n_expr)
+    if ev["eval_launches"] <= 0 or len(ev["pngs"]) != T_FRAMES * n_expr:
+        raise AssertionError(f"eval launches {ev['eval_launches']}, "
+                             f"{len(ev['pngs'])} PNGs (want "
+                             f"{T_FRAMES * n_expr})")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bd = amg_breakdown(amg, videos[0][1][0])
+    prof = bd["generate_profile"]
+    row = {"pred_iou_thresh": iou_t, "stability_score_thresh": stab_t,
+           "binned_frames": binned, "fallbacks": fallbacks.n,
+           "prompts": n_prompts, "prompts_main_s": prompts_s,
+           "prompt_frames_per_s": binned / prompts_s,
+           "tokens_main_s": tokens_s, "tracking_s": track_s,
+           "object_fps": tracked * T_FRAMES / track_s,
+           "census": {v: {k: c[k] for k in ("n_tracked", "n_filtered",
+                                             "n_not_used", "n_total")}
+                      for v, c in census.items()},
+           "launches": {"prompts_grid": amg_launches,
+                        "tokens_grid": tokens_launches,
+                        "eval": ev["eval_launches"],
+                        "inference": ev["inference_launches"]},
+           "eval_s": ev["eval_s"], "inference_s": ev["inference_s"],
+           "metrics": {k: ev["metrics"][k] for k in (
+               "mean_J", "mean_F", "mean_JF", "tp", "fp", "fn", "tn")},
+           "pngs": len(ev["pngs"]), "peak_memory_gb": peak_gb,
+           "build_s": build_s, "breakdown": bd}
+    log(f"  AMG gates from frame 0's scores: pred_iou_thresh {iou_t:.6f}, "
+        f"stability_score_thresh {stab_t:.6f}; prompts {n_prompts}")
+    log(f"  prompts_grid.main: {binned} binned frames in {prompts_s:.2f} s "
+        f"({row['prompt_frames_per_s']:.3f} frames/s, reading the frames "
+        f"included; {fallbacks.n} overflow fallbacks), flash launches "
+        f"{amg_launches} ({per_encode} a frame); tokens_grid.main "
+        f"{tokens_s:.2f} s, "
+        f"tracking {track_s:.2f} s ({row['object_fps']:.2f} object-fps "
+        f"over {tracked} tracks), census {row['census']}")
+    log(f"  cli.eval {ev['eval_s']:.2f} s (flash launches "
+        f"{ev['eval_launches']}), cli.inference {ev['inference_s']:.2f} s "
+        f"({ev['inference_launches']}); {row['metrics']}; {len(ev['pngs'])}"
+        f" PNGs; peak memory {peak_gb:.2f} GB; card {smi_line()}")
+    log(f"  AMG frame, warm ({bd['survivors']} survivors): encode "
+        f"{bd['encode_ms']:.2f} ms, propose/filter "
+        f"{bd['propose_filter_ms']:.2f} ms, finalize {bd['finalize_ms']:.2f}"
+        f" ms, NMS + fetch + records {bd['host_ms']:.2f} ms; generate "
+        f"{bd['generate_ms']:.2f} ms; one profiled generate: " + (
+            "not measured (the profiler recorded no device kernel)"
+            if prof["busy_ms"] is None else
+            f"wall {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f})"
+            f", flash fwd {prof['flash_fwd_ms']:.3f} ms "
+            f"({prof['flash_fwd_launches']} launches), {prof['kernels']} "
+            f"kernels; most time: " + "; ".join(
+                f"{n[:60]} {ms:.2f} ms" for n, ms in prof["top_kernels_ms"])))
+    del amg, image_pred, video_pred
+    torch.cuda.empty_cache()
+    drop_bulk(root)
+    return row
+
+
+def fused_everywhere(model):
+    """Lower the flash kernel's size thresholds so a tiny SAM2 takes it."""
+    from sola_torch.trackgen.sam2 import hiera, memory
+    for m in model.modules():
+        if isinstance(m, hiera.MultiScaleAttention):
+            m.fused_min_tokens = 1
+        if isinstance(m, memory.RoPEAttention):
+            m.fused_min_keys = 1
+    return model
+
+
+def _same_records(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        (x["area"], x["bbox"], x["predicted_iou"], x["stability_score"])
+        == (y["area"], y["bbox"], y["predicted_iou"], y["stability_score"])
+        and np.array_equal(x["segmentation"], y["segmentation"])
+        for x, y in zip(a, b))
+
+
+# card against CPU at tiny size (fp32, TF32 off): predicted IoUs differ by
+# summation order; stability is a ratio of 16 x 16 low-res pixel counts
+# (one pixel at the +-1 logit edge moves it by about 1/256); a mask logit
+# at 0 may round either way.
+GRID_SMALL_TOL = {"predicted_iou": 1e-4, "stability": 1e-2,
+                  "mask_pixels": 5e-3}
+# The eval JSONs: confusion counts equal, J, F and J&F within 1e-6 (the
+# same masks), the losses and score means within 1e-5 relative. A score
+# std (the leaves ``*_score/1``) moves by at most the scores' largest
+# difference, which a std of a few close scores may carry at well over
+# 1e-5 of its size, so a std passes within 1e-5 relative or EVAL_STD_ATOL.
+# That floor sits between the card's fp32 reading (largest std difference
+# 1.97e-6) and a control run with the selection attention in bf16, which
+# the check must reject (PERF.md, phase 12).
+EVAL_RTOL, EVAL_STD_ATOL, JF_ATOL = 1e-5, 4e-6, 1e-6
+
+
+def _json_leaves(got, ref, path=""):
+    """(path, got, ref) of every float leaf of two eval JSONs and of every
+    other leaf where they differ."""
+    if isinstance(ref, dict) and isinstance(got, dict) and set(got) == set(
+            ref):
+        for key in ref:
+            yield from _json_leaves(got[key], ref[key], f"{path}/{key}")
+    elif (isinstance(ref, list) and isinstance(got, list)
+          and len(got) == len(ref)):
+        for i, (a, b) in enumerate(zip(got, ref)):
+            yield from _json_leaves(a, b, f"{path}/{i}")
+    elif isinstance(ref, float) or got != ref:
+        yield path, got, ref
+
+
+def _is_std(path: str) -> bool:
+    return path.endswith("_score/1")
+
+
+def _float_ok(path, got, ref) -> bool:
+    atol = EVAL_STD_ATOL if _is_std(path) else 0.0
+    return isinstance(ref, float) and isinstance(got, float) and (
+        (np.isnan(got) and np.isnan(ref))
+        or abs(got - ref) <= max(atol, EVAL_RTOL * abs(ref)))
+
+
+def eval_differences(got: dict, ref: dict) -> tuple:
+    """The leaves of two eval runs that break the limits above, and the
+    readings: the largest std difference and the largest relative
+    difference of the other floats."""
+    leaves = list(_json_leaves(got["metrics"], ref["metrics"]))
+    errors = ([leaf for leaf in leaves if not _float_ok(*leaf)]
+              + [(v, e, k, got["jf"][v][e][k], ref["jf"][v][e][k])
+                 for v in ref["jf"] for e in ref["jf"][v]
+                 for k in ("J", "F", "JF")
+                 if abs(got["jf"][v][e][k] - ref["jf"][v][e][k]) > JF_ATOL])
+    finite = [(p, a, b) for p, a, b in leaves
+              if isinstance(b, float) and np.isfinite(b)]
+    std = max((abs(a - b) for p, a, b in finite if _is_std(p)), default=0.0)
+    rel = max((abs(a - b) / max(abs(b), 1e-30) for p, a, b in finite
+               if not _is_std(p)), default=0.0)
+    return errors, {"std_max_abs_err": std, "other_max_rel_err": rel}
+
+
+def run_grid_small_reference(fa) -> dict:
+    """Phase 12: the grid path's new modules at tiny size on the card (fp32,
+    the flash kernel's thresholds lowered so it runs) against the CPU, which
+    runs the kernel's plain version: generate's records; generate_many on
+    the card against generate on the card, exactly; the overflow fallback
+    against the single pass, exactly; the eval JSONs."""
+    from sola_torch.data import synthetic
+    from sola_torch.trackgen.sam2.amg import (SAM2AutomaticMaskGenerator,
+                                              build_point_grid)
+    from sola_torch.trackgen.sam2.convert import load_sam2_image_predictor
+    from sola_torch.trackgen.sam2.model import SAM2Config
+    frames = _small_frames()[0]
+
+    def amg_on(device, **kw):
+        pred = load_sam2_image_predictor(
+            None, cfg=SAM2Config.tiny_test(64), device=device, seed=3,
+            compute_dtype=torch.float32)
+        fused_everywhere(pred.model)
+        return SAM2AutomaticMaskGenerator(pred, points_per_side=8,
+                                          points_per_batch=16, **kw)
+
+    # gates from the CPU's scores over 4 frames: stability between the
+    # 0.3 and 0.7 quantiles of its distinct values, IoU then between the
+    # 0.2 and 0.8 quantiles of the distinct values it passes
+    ious, stabs = probe_scores(amg_on("cpu").predictor, frames[:4], 8)
+    stab_t = gap_gate(stabs, 0.3, 0.7)
+    passing = ious[stabs > stab_t]
+    iou_t = gap_gate(passing, 0.2, 0.8)
+    margin = min(np.abs(passing - iou_t).min(), np.abs(stabs - stab_t).min())
+    # card and CPU must make the same keep decisions: their scores differ
+    # by less than the predicted-IoU limit
+    if margin <= GRID_SMALL_TOL["predicted_iou"]:
+        raise AssertionError(f"a score lies {margin} from a gate")
+    gates = dict(pred_iou_thresh=iou_t, stability_score_thresh=stab_t)
+    before = fa.launches
+    card = amg_on("cuda", **gates).generate(frames[0])
+    card_launches = fa.launches - before
+    before = fa.launches
+    cpu = amg_on("cpu", **gates).generate(frames[0])
+    if fa.launches != before or card_launches == 0:
+        raise AssertionError(f"small AMG launches: card {card_launches}, "
+                             f"cpu {fa.launches - before}")
+    if len(card) != len(cpu) or not card:
+        raise AssertionError(f"records: card {len(card)}, cpu {len(cpu)}")
+    errs = dict.fromkeys(GRID_SMALL_TOL, 0.0)
+    for a, b in zip(card, cpu):
+        errs["predicted_iou"] = max(errs["predicted_iou"], abs(
+            a["predicted_iou"] - b["predicted_iou"]))
+        errs["stability"] = max(errs["stability"], abs(
+            a["stability_score"] - b["stability_score"]))
+        errs["mask_pixels"] = max(errs["mask_pixels"], float(
+            (a["segmentation"] != b["segmentation"]).mean()))
+    # the survivor buffer (score order, NMS's input) on both devices
+    bufs = []
+    for device in ("cuda", "cpu"):
+        pred = amg_on(device).predictor
+        pred.set_image(frames[2])
+        pts = build_point_grid(8) * np.asarray([64, 48], np.float32)
+        out = pred.propose_filter(pts[:, None], 1.0, gates["pred_iou_thresh"],
+                                  gates["stability_score_thresh"], chunk=16,
+                                  k_max=64)
+        bufs.append([t.cpu().numpy() for t in out])
+    (g_sc, _, g_flat, _, _, g_n), (c_sc, _, c_flat, _, _, c_n) = bufs
+    k = min(int(c_n), 64)
+    survivors_equal = (int(g_n) == int(c_n) > 0
+                       and np.array_equal(g_flat, c_flat))
+    errs["predicted_iou"] = max(errs["predicted_iou"], float(
+        np.abs(g_sc[:k] - c_sc[:k]).max()))
+    bad = {k: (v, GRID_SMALL_TOL[k]) for k, v in errs.items()
+           if v > GRID_SMALL_TOL[k]}
+    if bad or not survivors_equal:
+        raise AssertionError(f"AMG card vs cpu beyond tolerance: {bad}; "
+                             f"survivors {int(g_n)} / {int(c_n)}, equal "
+                             f"order {survivors_equal}")
+
+    # every survivor becomes a record (NMS at 1.0), so ~100 records a frame
+    amg = amg_on("cuda", box_nms_thresh=1.0, **gates)
+    many = list(amg.generate_many(iter(frames[:4])))
+    one = [amg.generate(f) for f in frames[:4]]
+    if not all(_same_records(a, b) for a, b in zip(many, one)):
+        raise AssertionError("generate_many differs from generate")
+    permissive = dict(pred_iou_thresh=-10.0, stability_score_thresh=-1.0,
+                      box_nms_thresh=1.0)
+    single = amg_on("cuda", **permissive).generate(frames[1])
+    fb_amg = amg_on("cuda", max_survivors=4, **permissive)
+    fallbacks = FallbackCounter(fb_amg)
+    fallback = fb_amg.generate(frames[1])
+    if fallbacks.n != 1 or not _same_records(fallback, single):
+        raise AssertionError(f"overflow fallback ({fallbacks.n} taken): "
+                             f"{len(fallback)} records against "
+                             f"{len(single)}")
+
+    # eval on the card against the CPU: a tiny corpus and selection model
+    root = os.path.join(OUT_DIR, "grid_small")
+    gen = synthetic.generate(os.path.join(root, "data"), n_videos=2,
+                             n_frames=8, h=48, w=64, n_objects=2,
+                             n_distractors=3)
+    # the control runs the card's selection attention in bf16: the eval
+    # check has to reject it
+    from sola_torch.models import attention
+    fused = attention.fused_attention
+
+    def bf16_attention(q, k, v, **kw):
+        return fused(q.bfloat16(), k.bfloat16(), v.bfloat16(), **kw).to(
+            q.dtype)
+
+    runs = {}
+    for name, device in (("card", "cuda"), ("cpu", "cpu"),
+                         ("control", "cuda")):
+        ws = os.path.join(root, name)
+        os.makedirs(ws)
+        yaml_path = grid_configs(ws, "grid_small", {
+            "object_token_dim": 256, "lang_token_dim": 64, "n_layers": 1,
+            "n_negative": 4, "dropout_p": 0.0, "attn_dropout_p": 0.0,
+            "use_pallas_attention": True})
+        import yaml
+        with open(yaml_path) as f:
+            configs = yaml.safe_load(f)
+        configs["dataset"]["data_root"] = gen["data_root"]
+        configs["dataset"]["track_root"] = gen["track_root"]
+        with open(yaml_path, "w") as f:
+            yaml.safe_dump(configs, f)
+        save_selection_checkpoint(yaml_path, seed=1)
+        attention.fused_attention = (bf16_attention if name == "control"
+                                     else fused)
+        try:
+            runs[name] = eval_outputs(yaml_path, device)
+        finally:
+            attention.fused_attention = fused
+    c, g = runs["cpu"], runs["card"]
+    check_jf(g, 4)
+    errors, readings = eval_differences(g, c)
+    control_errors, control = eval_differences(runs["control"], c)
+    counts = [(g["metrics"][k], c["metrics"][k]) for k in ("tp", "fp", "fn",
+                                                           "tn")]
+    if (errors or g["pngs"] != c["pngs"] or g["eval_launches"] == 0
+            or c["eval_launches"] != 0):
+        raise AssertionError(f"eval card vs cpu: {errors[:5]}, counts "
+                             f"{counts}, launches {g['eval_launches']} / "
+                             f"{c['eval_launches']}")
+    if not control_errors or runs["control"]["eval_launches"] == 0:
+        raise AssertionError(f"the eval check passes the bf16 control: "
+                             f"{control}")
+    jf_err = max(abs(g["jf"][v][e][k] - c["jf"][v][e][k]) for v in c["jf"]
+                 for e in c["jf"][v] for k in ("J", "F", "JF"))
+    drop_bulk(root)
+    log(f"  tiny_test AMG on the card vs the CPU (fp32, kernel route, "
+        f"{card_launches} launches): {len(card)} records and the "
+        f"{int(c_n)} survivors' order agree, largest "
+        f"differences {errs} (limits {GRID_SMALL_TOL}); generate_many over "
+        f"4 frames equals generate ({sum(map(len, one))} records); the "
+        f"overflow fallback (max_survivors 4) equals the single pass "
+        f"({len(single)} records); eval on the card vs the CPU: counts "
+        f"{counts}, largest std difference {readings['std_max_abs_err']:.3g}"
+        f" (limit {EVAL_STD_ATOL:.3g}), other floats within "
+        f"{readings['other_max_rel_err']:.3g} rel (limit {EVAL_RTOL}); bf16 "
+        f"control rejected ({len(control_errors)} leaves, {control}), J&F "
+        f"within {jf_err:.3g} (limit {JF_ATOL}), {len(g['pngs'])} PNGs "
+        f"alike, flash launches {g['eval_launches']}")
+    return {"amg_errors": errs, "limits": GRID_SMALL_TOL, "gates": gates,
+            "gate_margin": float(margin),
+            "records": len(card), "survivors": int(c_n),
+            "generate_many_records":
+            sum(map(len, one)), "fallback_records": len(single),
+            "eval_counts": counts, "jf_max_abs_err": jf_err,
+            "eval_readings": readings, "eval_control_readings": control,
+            "eval_control_rejected_leaves": len(control_errors),
+            "eval_limits": {"rtol": EVAL_RTOL, "std_atol": EVAL_STD_ATOL,
+                            "jf_atol": JF_ATOL},
+            "card_launches": {"amg": card_launches,
+                              "eval": g["eval_launches"]}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
@@ -2049,6 +2685,12 @@ def main() -> None:
     training = run_selection_training(fa)
     log("phase 10: selection training small reference")
     training_small = run_selection_small_reference(fa)
+    log("phase 11: the grid path from video to J&F: prompts_grid -> "
+        "tokens_grid -> eval / inference at SAM2 hiera-L and "
+        "SelectionConfig()")
+    grid_path = run_grid_main_path(fa)
+    log("phase 12: grid path small reference")
+    grid_small = run_grid_small_reference(fa)
 
     head = kernel["rows"][0]  # memory cross-attention: most of the time
     # the main path's shape: 3 expressions padded to 4, fp32 (CLI default)
@@ -2059,7 +2701,13 @@ def main() -> None:
     by_path = {
         "flash_attn_fwd": {"tokens_grid": main_path["launches"],
                            "gdino": gdino_path["launches"]["flash_attn_fwd"],
-                           "train": training["launches"]["flash_attn_fwd"]},
+                           "train": training["launches"]["flash_attn_fwd"],
+                           "prompts_grid":
+                           grid_path["launches"]["prompts_grid"],
+                           "tokens_grid_from_grid_prompts":
+                           grid_path["launches"]["tokens_grid"],
+                           "eval": grid_path["launches"]["eval"],
+                           "inference": grid_path["launches"]["inference"]},
         "ms_deform_attn_fwd": {
             "tokens_grid": main_path["deform_launches"],
             "gdino": gdino_path["launches"]["ms_deform_attn_fwd"]}}
@@ -2120,6 +2768,8 @@ def main() -> None:
                    gdino_small, "training_kernels": training_kernels,
                    "selection_training": training,
                    "selection_small_reference": training_small,
+                   "grid_path": grid_path,
+                   "grid_small_reference": grid_small,
                    "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items()

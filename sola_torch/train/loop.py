@@ -75,15 +75,22 @@ def prepare_batch(batch: dict, text_encoder, train_cfg: Optional[dict],
     return out
 
 
-def _losses(model: SelectionModel, batch: dict, train_cfg: dict,
-            generator: Optional[torch.Generator] = None):
-    """(score logits, loss, parts) of one batch; a training forward when
+def _forward(model: SelectionModel, batch: dict,
+             generator: Optional[torch.Generator] = None):
+    """(score logits, score tokens) of one batch; a training forward when
     ``generator`` is given."""
-    score_logits, score_tokens = model(
+    return model(
         batch["object_tokens"], batch["lang_tokens"],
         track_mask=batch["track_mask"], frame_lengths=batch["frame_lengths"],
         lang_mask=batch["lang_mask"], deterministic=generator is None,
         generator=generator)
+
+
+def _losses(model: SelectionModel, batch: dict, train_cfg: dict,
+            generator: Optional[torch.Generator] = None):
+    """(score logits, loss, parts) of one batch; a training forward when
+    ``generator`` is given."""
+    score_logits, score_tokens = _forward(model, batch, generator)
     loss, parts = loss_lib.total_loss(
         score_logits, score_tokens, batch["labels"], batch["pos_tokens"],
         model.get_negative_tokens(score_tokens.shape[0]),
@@ -112,19 +119,25 @@ def train_step(model: SelectionModel, optimizer: state_lib.Optimizer,
 @torch.no_grad()
 def eval_step(model: SelectionModel, batch: dict, train_cfg: dict,
               pred_threshold: float) -> dict:
-    """Loss parts, scores, predictions and the confusion counts over valid
-    tracks (device tensors)."""
+    """Scores and predictions, and for a batch with labels the loss parts
+    and the confusion counts over valid tracks (device tensors)."""
     model.eval()
-    score_logits, _, parts = _losses(model, batch, train_cfg)
+    labels = batch.get("labels")
+    if labels is None:
+        score_logits, _ = _forward(model, batch)
+        out = {}
+    else:
+        score_logits, _, parts = _losses(model, batch, train_cfg)
+        out = dict(parts)
     scores = torch.sigmoid(score_logits)
     preds = (scores > pred_threshold).float()
-    labels, m = batch["labels"], batch["track_mask"]
-    out = dict(parts)
-    out.update(pred_score=scores, pred=preds,
-               tp=((preds == 1) & (labels == 1) & m).sum(),
-               fp=((preds == 1) & (labels == 0) & m).sum(),
-               fn=((preds == 0) & (labels == 1) & m).sum(),
-               tn=((preds == 0) & (labels == 0) & m).sum())
+    out.update(pred_score=scores, pred=preds)
+    if labels is not None:
+        m = batch["track_mask"]
+        out.update(tp=((preds == 1) & (labels == 1) & m).sum(),
+                   fp=((preds == 1) & (labels == 0) & m).sum(),
+                   fn=((preds == 0) & (labels == 1) & m).sum(),
+                   tn=((preds == 0) & (labels == 0) & m).sum())
     return out
 
 

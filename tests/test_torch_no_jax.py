@@ -36,7 +36,10 @@ def test_every_module_imports_without_jax():
     for name in ("config", "cli.train", "data.dataset", "data.device_cache",
                  "data.synthetic", "models.attention", "models.convert",
                  "models.layers", "models.selection", "models.text",
-                 "train.loop", "train.loss", "train.schedule", "train.state"):
+                 "train.loop", "train.loss", "train.schedule", "train.state",
+                 "trackgen.sam2.amg", "trackgen.prompts_grid", "core.ccl",
+                 "eval.evaluator", "eval.inference", "eval.metrics",
+                 "cli.eval", "cli.inference", "utils.viz"):
         assert f"sola_torch.{name}" in mods, name
     code = f"""
 import importlib.abc, sys
@@ -134,3 +137,24 @@ def test_train_entry_points_default_to_cuda(monkeypatch, tmp_path):
         train({})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--config", "mevis/default"])
+
+
+def test_grid_and_eval_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """prompts_grid and the eval and inference CLIs refuse to run without
+    CUDA unless asked for the CPU; the CPU runs are in
+    tests/test_torch_amg.py and tests/test_torch_eval.py."""
+    import torch
+
+    from sola_torch.cli import eval as eval_cli
+    from sola_torch.cli import inference as inference_cli
+    from sola_torch.trackgen import prompts_grid
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frames = tmp_path / "datasets" / "mevis" / "valid_u" / "JPEGImages"
+    frames.mkdir(parents=True)
+    argv = ["--data_root", str(tmp_path), "--output_root", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prompts_grid.main(argv, amg_factory=lambda: None)
+    prompts_grid.main(argv + ["--device", "cpu"], amg_factory=lambda: None)
+    for main in (eval_cli.main, inference_cli.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["--config", "mevis/default", "--eval_weight_epoch", "0"])
