@@ -10,8 +10,9 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    checkout (one nvcc per kernel, all at once), and holds the flash
    kernel against its plain PyTorch
    version on the card at the shapes and types the main path gives it
-   (bf16 in memory attention, fp32 at Hiera's global blocks, whose shape
-   is checked in bf16 too) and at check shapes in both types (ragged
+   (bf16 in memory attention at batch 4, a packed round's 8 slots and
+   sequential GT's 1, fp32 at Hiera's global blocks, whose shape is
+   checked in bf16 too) and at check shapes in both types (ragged
    head dims, a partial 128-row block, a zero-filled last key tile, masks
    that empty alternate key tiles or all but the last, one batch*head),
    and shows the limits reject a wrong key tile;
@@ -81,6 +82,22 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    records on the card against the CPU, generate_many against generate
    and the overflow fallback against the single pass on the card
    (exactly), and the eval JSONs and PNGs on the card against the CPU.
+13. Packed propagation and GT tracks at SAM2 hiera-L (seeded random
+   weights from the CLIs' own predictor factory): tokens_grid.main
+   --video_pack 2 on 2 synthetic 12-frame 480x854 JPEG videos with grid
+   prompt JSONs, tokens_gdino.main --expr_pack 3 on a 3-expression prompt
+   JSON, tokens_gt.main --save_prec_rec_iou --video_pack 2 on a MeViS
+   train layout of 2 videos with 3 GT objects each (one re-appears, one
+   first appears at frame 3); each against its sequential run at the
+   CLI's default obj_batch and at the packed run's 8: the same artifact
+   files and decisions, masks, tokens and prec/rec/IoU within stated
+   limits, flash launches at memory attention in every run; object-fps,
+   GT seeds/s and peak memory.
+14. A small reference for the packed paths at SAM2Config.tiny_test (fp32):
+   packed grid tracks, packed expressions, sequential and packed GT on the
+   card against the CPU; packed against sequential on the card under
+   tests/test_packed.py's bounds; bank pushes on idle steps (the gate taken
+   away) must break the packed GT agreement.
 
 The second-to-last line is a JSON object listing every ported kernel; the
 line before it is the card's name and power limit; the last line is
@@ -243,6 +260,18 @@ def memory_cross_mask(b: int, gen) -> torch.Tensor:
     return mask.cuda()
 
 
+def packed_memory_mask(b: int, gen) -> torch.Tensor:
+    """(B, 28,736) memory cross-attention mask of a packed round: slot i
+    has 1 + i % 7 valid frame slots (its cond memory and i % 7 recent
+    ones) and its own random half of the pointers, so every slot has its
+    own valid-key count."""
+    mask = memory_cross_mask(b, gen).cpu()
+    for i in range(b):
+        mask[i, :7 * 4096] = False
+        mask[i, :(1 + i % 7) * 4096] = True
+    return mask.cuda()
+
+
 def attention_cases(gen):
     """(name, site, dtype, b, h, lq, lk, d, mask) at the main path's shapes
     and types: memory attention runs in bf16; Hiera's global blocks run in
@@ -252,6 +281,12 @@ def attention_cases(gen):
     cases = [("memory_cross", "memory", bf16, 4, 1, 4096, 28736, 256,
               memory_cross_mask(4, gen)),
              ("memory_self", "memory", bf16, 4, 1, 4096, 4096, 256, None),
+             # a packed round's 8 slots, each at its own fill of the banks,
+             # and sequential GT's single slot
+             ("memory_cross_b8", "memory", bf16, 8, 1, 4096, 28736, 256,
+              packed_memory_mask(8, gen)),
+             ("memory_cross_b1", "memory", bf16, 1, 1, 4096, 28736, 256,
+              memory_cross_mask(1, gen)),
              ("hiera_l_global", "hiera", fp32, 4, 8, 4096, 4096, 72, None),
              # the image predictor's batch-1 encode (the AMG, gdino prompts)
              ("hiera_l_global_b1", "hiera", fp32, 1, 8, 4096, 4096, 72,
@@ -2629,6 +2664,651 @@ def run_grid_small_reference(fa) -> dict:
                               "eval": g["eval_launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phases 13 and 14: packed propagation (tokens_grid --video_pack,
+# tokens_gdino --expr_pack) and GT-prompted tracks (tokens_gt)
+# ---------------------------------------------------------------------------
+
+PACK_EXPRESSIONS = {"0": "the red box moving right",
+                    "1": "a green ellipse",
+                    "2": "the blue square moving up"}
+# GT objects of a phase-13 video: object 1 leaves at frame 6 and comes back
+# at 8 (two onsets, two tracks); object 2 first appears at frame 3
+GT_ABSENT = {0: (), 1: (6, 7), 2: (0, 1, 2)}
+# Phase 13's limits (PERF.md, written before the first run), bf16 compute.
+# Packed against sequential at the same obj_batch (8): the slots see the
+# same shapes and no op mixes them, so both should agree bit for bit; a
+# mask may differ on 1e-4 of a track's pixels, a token by one bf16 ulp at
+# the largest |token| (2^-7 of it), a prec/rec/IoU by 1e-4. Packed against
+# the CLI's sequential default (obj_batch 4 for grid and gdino, 1 for GT):
+# other batch sizes may take other GEMM algorithms, whose bf16 roundings
+# differ and carry through the memory from frame to frame; the same
+# tracks and decisions, a mask within 1e-2 of its pixels, a token within
+# 2^-3 of the largest |token|, a prec/rec/IoU within 1e-2.
+PACK_SAME = {"mask_frac": 1e-4, "token_rel": 2.0 ** -7, "metric": 1e-4}
+PACK_DEFAULT = {"mask_frac": 1e-2, "token_rel": 2.0 ** -3, "metric": 1e-2}
+# Phase 14 (tiny, fp32): card against CPU within phase 4's limits; packed
+# against sequential on the card under tests/test_packed.py's bounds
+SMALL_CARD_CPU = {"mask_frac": 1e-2, "token_atol": 1e-3, "metric": 1e-2}
+SMALL_PACK = {"mask_frac": 1e-4, "token_atol": 1e-4}
+SMALL_PACK_GT = {"mask_frac": 1e-4, "token_atol": 1e-5, "metric": 1e-5}
+
+
+def read_tracks(track_root: str) -> dict:
+    """{masklet JSON path relative to ``track_root``: (masklet, tokens,
+    metrics, anno_id)} of every track under a sam2_tracks root."""
+    from sola_torch.core import rle
+    out = {}
+    for dirpath, _, files in os.walk(track_root):
+        if "sam2_masklets" not in dirpath.split(os.sep):
+            continue
+        for fn in files:
+            if not fn.endswith(".json") or fn.startswith("labels_index"):
+                continue
+            path = os.path.join(dirpath, fn)
+            with open(path) as f:
+                info = json.load(f)
+            tok = path.replace(os.sep + "sam2_masklets" + os.sep,
+                               os.sep + "sam2_object_tokens" + os.sep)
+            metrics = {f"{k}/{g}": v for k in ("precision", "recall", "iou")
+                       for g, v in info.get(k, {}).items()}
+            out[os.path.relpath(path, track_root)] = (
+                rle.decode_masklet(info["rle"]),
+                np.load(tok[:-len(".json")] + ".npy"), metrics,
+                info["anno_id"])
+    return out
+
+
+def track_differences(ref: dict, got: dict) -> dict:
+    """Largest per-track differences of two read_tracks results on the
+    same file set: share of a masklet's pixels, token error absolute and
+    relative to the track's largest |token|, prec/rec/IoU."""
+    if sorted(ref) != sorted(got) or not ref:
+        raise AssertionError(f"track files differ: {sorted(ref)} against "
+                             f"{sorted(got)}")
+    d = {"mask_frac": 0.0, "token_atol": 0.0, "token_rel": 0.0,
+         "metric": 0.0}
+    for key, (m, t, met, anno) in ref.items():
+        m2, t2, met2, anno2 = got[key]
+        if m.shape != m2.shape or t.shape != t2.shape or anno != anno2 \
+                or sorted(met) != sorted(met2):
+            raise AssertionError(f"{key}: shapes {m.shape}/{m2.shape}, "
+                                 f"{t.shape}/{t2.shape}, anno {anno}/{anno2}")
+        if not np.isfinite(t2).all():
+            raise AssertionError(f"{key}: tokens not finite")
+        err = float(np.abs(t2 - t).max())
+        d["mask_frac"] = max(d["mask_frac"], float((m != m2).mean()))
+        d["token_atol"] = max(d["token_atol"], err)
+        d["token_rel"] = max(d["token_rel"],
+                             err / max(float(np.abs(t).max()), 1e-30))
+        for k, v in met.items():
+            d["metric"] = max(d["metric"], abs(met2[k] - v))
+    return d
+
+
+def beyond(diffs: dict, limits: dict) -> dict:
+    return {k: (diffs[k], v) for k, v in limits.items() if diffs[k] > v}
+
+
+def gt_video(seed: int):
+    """A synthetic 12-frame 480x854 video and its 3 objects' GT masklets
+    with GT_ABSENT's gaps."""
+    frames, masks = synthetic_video(seed)
+    gts = []
+    for obj in range(3):
+        m = np.stack([f[obj] for f in masks])
+        m[list(GT_ABSENT[obj])] = 0
+        gts.append(m)
+    return frames, masks, gts
+
+
+def write_layout(data_dir: str, videos: dict, expressions: dict,
+                 mask_dict: dict = None) -> None:
+    """A MeViS-layout split: JPEG frames, meta_expressions.json and, if
+    given, mask_dict.json."""
+    from PIL import Image
+    meta = {"videos": {}}
+    for vid, frames in videos.items():
+        frames_dir = os.path.join(data_dir, "JPEGImages", vid)
+        os.makedirs(frames_dir)
+        for t, f in enumerate(frames):
+            Image.fromarray(f).save(os.path.join(frames_dir, f"{t:05d}.jpg"))
+        meta["videos"][vid] = {
+            "frames": [f"{t:05d}" for t in range(len(frames))],
+            "expressions": expressions[vid]}
+    with open(os.path.join(data_dir, "meta_expressions.json"), "w") as f:
+        json.dump(meta, f)
+    if mask_dict is not None:
+        with open(os.path.join(data_dir, "mask_dict.json"), "w") as f:
+            json.dump(mask_dict, f)
+
+
+def gdino_prompts(masks) -> list:
+    """Per expression e of PACK_EXPRESSIONS: objects e and e+1 on frame 0,
+    object e on frame 4 (a batch of 2, then one of 1)."""
+    from sola_torch.core import rle
+    out = []
+    for e in range(3):
+        for frame_idx, obj in ((0, e), (0, (e + 1) % 3), (4, e)):
+            m = masks[frame_idx][obj]
+            out.append({"segmentation": rle.encode(m),
+                        "stability_score": 0.97, "score": 0.9,
+                        "area": int(m.sum()), "area_ratio": float(m.mean()),
+                        "frame_idx": frame_idx, "expression_id": str(e),
+                        "prompt_id": len(out)})
+    return out
+
+
+class EncodeTimer:
+    """Seconds the given predictors spend in ``init_state`` (each call
+    ended by a synchronize), so a CLI run's tracking time is its wall time
+    less its encodes."""
+
+    def __init__(self, preds):
+        self.seconds = 0.0
+        for p in preds:
+            p.init_state = self._timed(p.init_state)
+
+    def _timed(self, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+        return run
+
+
+def tracks_something(pred, frames, mask) -> bool:
+    """Whether ``pred`` finds the prompted object on the 3 frames after
+    its prompt: a tracked mask neither empty nor full."""
+    state = pred.init_state(frames[:4])
+    pred.add_new_mask(state, 0, 0, mask)
+    areas = [float(m[0].mean()) for f, _, m in pred.propagate_in_video(
+        state, output_mode="masks") if f > 0]
+    return any(0 < a < 1 for a in areas)
+
+
+def live_seed(frames, mask, seeds=range(16)) -> tuple:
+    """(seed, seeds tried): the first seed whose random hiera-L tracks the
+    object after the prompt frame. With seed 0 the object score is negative
+    on every tracked frame, so every tracked mask is empty and every token
+    is the no-object pointer, whatever the batch: the packed and sequential
+    runs would then agree trivially."""
+    from sola_torch.trackgen import tokens_grid
+    for seed in seeds:
+        pred = tokens_grid._default_predictor_factory(
+            SAM2_CKPT, obj_batch=1, device="cuda", seed=seed)()
+        live = tracks_something(pred, frames, mask)
+        del pred
+        if live:
+            return seed, seed + 1
+    raise AssertionError(f"no seed in {seeds} tracks anything")
+
+
+def liveness(tracks: dict) -> dict:
+    """Share of tracked frames (all but a track's first non-empty one)
+    whose mask is neither empty nor full, and the largest token spread
+    over frames."""
+    shares, spread = [], 0.0
+    for m, tok, _, _ in tracks.values():
+        area = m.reshape(m.shape[0], -1).mean(axis=1)
+        rest = np.arange(len(area)) != int(np.argmax(area > 0))
+        shares += [0 < a < 1 for a in area[rest]]
+        spread = max(spread, float(np.std(tok[rest], axis=0).max()))
+    return {"live_frames": float(np.mean(shares)), "token_spread": spread}
+
+
+def run_pack_path(fa, name, main_fn, argv, pred, sites, timer,
+                  out_root: str, object_frames) -> dict:
+    """One CLI run of phase 13 with its own output root: flash launches
+    (zeroed just before, read just after) by site, wall and tracking
+    seconds, and the written tracks."""
+    torch.cuda.synchronize()
+    fa.launches = 0
+    sites.reset()
+    enc0 = timer.seconds
+    t0 = time.perf_counter()
+    main_fn(argv + ["--output_root", out_root],
+            predictor_factory=lambda: pred)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_site = fa.launches, dict(sites.counts)
+    encode = timer.seconds - enc0
+    if by_site["memory"] <= 0:
+        raise AssertionError(f"{name}: no flash launch at memory attention "
+                             f"({by_site} of {launches})")
+    track_root = os.path.join(out_root, "sam2_tracks")
+    runtime = {}
+    for dirpath, _, files in os.walk(track_root):
+        for fn in files:
+            if fn.startswith("runtime_info"):
+                with open(os.path.join(dirpath, fn)) as f:
+                    runtime = json.load(f)
+    frames_objects = object_frames(runtime)
+    return {"wall_s": wall, "encode_s": encode, "tracking_s": wall - encode,
+            "object_frames": frames_objects,
+            "object_fps": frames_objects / (wall - encode),
+            "launches": launches, "flash_by_site": by_site,
+            "runtime": runtime, "tracks": read_tracks(track_root)}
+
+
+def compare_pack_runs(path: str, runs: dict, decisions) -> dict:
+    """Phase 13's checks on one path: the same artifact files and
+    decisions in every run, and packed against both sequential runs
+    within PACK_SAME / PACK_DEFAULT."""
+    seq, same, pk = runs["seq"], runs["seq8"], runs["pack"]
+    for other in (seq, same):
+        if decisions(other["runtime"]) != decisions(pk["runtime"]):
+            raise AssertionError(f"{path}: decisions differ: "
+                                 f"{decisions(other['runtime'])} against "
+                                 f"{decisions(pk['runtime'])}")
+    d_same = track_differences(same["tracks"], pk["tracks"])
+    d_seq = track_differences(seq["tracks"], pk["tracks"])
+    bad = {"same_batch": beyond(d_same, PACK_SAME),
+           "default_batch": beyond(d_seq, PACK_DEFAULT)}
+    if any(bad.values()):
+        raise AssertionError(f"{path}: packed against sequential beyond "
+                             f"limits: {bad}")
+    return {"same_batch": d_same, "default_batch": d_seq}
+
+
+def run_packed_paths(fa) -> dict:
+    """Phase 13: tokens_grid.main --video_pack 2, tokens_gdino.main
+    --expr_pack 3 and tokens_gt.main (--video_pack 2) at SAM2 hiera-L,
+    seeded random weights from the CLIs' own predictor factory, each
+    against its sequential run at the CLI's default obj_batch and at the
+    packed run's (8)."""
+    from sola_torch.core import rle
+    from sola_torch.trackgen import tokens_gdino, tokens_grid, tokens_gt
+    root = os.path.join(OUT_DIR, "packed")
+    probe_frames, probe_masks = synthetic_video(19)
+    t0 = time.perf_counter()
+    seed, tried = live_seed(probe_frames, probe_masks[0][0])
+    probe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_batch = {b: tokens_grid._default_predictor_factory(
+        SAM2_CKPT, obj_batch=b, device="cuda", seed=seed)()
+        for b in (1, 4, 8)}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # one short run a batch size, so no timed run pays a first call
+    for pred in by_batch.values():
+        tracks_something(pred, probe_frames, probe_masks[0][0])
+    log(f"  weights: seed {seed}, the first of {tried} tried whose model "
+        f"tracks the object ({probe_s:.1f} s)")
+    sites = SiteCounter(fa)
+    sites.watch("memory", [p.model.memory_attention
+                           for p in by_batch.values()])
+    sites.watch("hiera", [p.model.image_encoder for p in by_batch.values()])
+    timer = EncodeTimer(by_batch.values())
+
+    # (a) grid prompts: 2 videos, 6 prompts each (3 objects on frames 0, 4)
+    grid_root = os.path.join(root, "grid")
+    grid = {f"pgrid{i}": synthetic_video(20 + i) for i in range(2)}
+    write_layout(os.path.join(grid_root, "datasets", "mevis", "valid_u"),
+                 {v: f for v, (f, _) in grid.items()},
+                 {v: {"0": {"exp": "a thing", "anno_id": [0]}}
+                  for v in grid})
+    # (b) GroundingDINO prompts: one video, 3 expressions, 3 prompts each
+    gd_root = os.path.join(root, "gdino")
+    gd_frames, gd_masks = synthetic_video(22)
+    write_layout(os.path.join(gd_root, "datasets", "mevis", "valid_u"),
+                 {"pgdino": gd_frames},
+                 {"pgdino": {e: {"exp": x, "anno_id": [int(e)]}
+                             for e, x in PACK_EXPRESSIONS.items()}})
+    # (c) GT: a train split of 2 videos, 3 GT objects each
+    gt_root = os.path.join(root, "gt")
+    gt_videos = {f"pgt{i}": gt_video(23 + i) for i in range(2)}
+    mask_dict, exprs = {}, {}
+    for v, (vid, (_, _, gts)) in enumerate(gt_videos.items()):
+        exprs[vid] = {}
+        for obj, m in enumerate(gts):
+            anno = 3 * v + obj
+            exprs[vid][str(obj)] = {"exp": f"object {obj}",
+                                    "anno_id": [anno]}
+            mask_dict[str(anno)] = [rle.encode(f) if f.any() else None
+                                    for f in m]
+    write_layout(os.path.join(gt_root, "datasets", "mevis", "train"),
+                 {v: f for v, (f, _, _) in gt_videos.items()}, exprs,
+                 mask_dict)
+
+    def grid_prompts(out_root):
+        d = os.path.join(out_root, "sam2_prompts", "grid_prompts", "mevis",
+                         "valid_u")
+        os.makedirs(d)
+        for vid, (_, masks) in grid.items():
+            write_prompts(os.path.join(d, f"{vid}.json"), vid, masks, rle)
+
+    def gd_prompts(out_root):
+        d = os.path.join(out_root, "sam2_prompts", "gdino_prompts", "mevis",
+                         "valid_u")
+        os.makedirs(d)
+        with open(os.path.join(d, "pgdino.json"), "w") as f:
+            json.dump({"video_id": "pgdino", "bin_size": 4,
+                       "prompt_masks": gdino_prompts(gd_masks)}, f)
+
+    common = ["--device", "cuda", "--prefetch_videos", "0"]
+    paths = {
+        "grid": (tokens_grid.main, grid_root, grid_prompts,
+                 common + ["--data_root", grid_root, "--bin_size", "4"],
+                 "--video_pack", "2", 4,
+                 lambda rt: sum(c["n_tracked"] * c["n_frames"]
+                                for c in rt.values()),
+                 lambda rt: {v: (c["tracked_prompt_ids"],
+                                 c["filtered_prompt_ids"])
+                             for v, c in rt.items()}),
+        "gdino": (tokens_gdino.main, gd_root, gd_prompts,
+                  common + ["--data_root", gd_root, "--bin_size", "4",
+                            "--stability_score_thresh", "0.5"],
+                  "--expr_pack", "3", 4,
+                  lambda rt: sum(c["n_tracked"] * c["n_frames"]
+                                 for e in rt.values() for c in e.values()),
+                  lambda rt: {(v, e): (c["tracked_prompt_ids"],
+                                       c["filtered_prompt_ids"])
+                              for v, es in rt.items()
+                              for e, c in es.items()}),
+        "gt": (tokens_gt.main, gt_root, lambda out_root: None,
+               common + ["--data_root", gt_root, "--save_prec_rec_iou"],
+               "--video_pack", "2", 1,
+               lambda rt: sum(c["n_frames"] for s in rt.values()
+                              for c in s.values()),
+               lambda rt: {(v, o): (c["gt_anno_id"], c["seed_frame"])
+                           for v, s in rt.items() for o, c in s.items()}),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    out = {"build_s": build_s, "seed": seed, "seeds_tried": tried}
+    for path, (main_fn, proot, write_in, argv, flag, n, seq_b, frames_of,
+               decisions) in paths.items():
+        runs = {}
+        # packed between the two sequential runs, so none of them runs
+        # first on a cold card alone
+        for name, b, extra in (("seq", seq_b, []),
+                               ("pack", 8, [flag, n]),
+                               ("seq8", 8, ["--obj_batch", "8"])):
+            out_root = os.path.join(proot, name)
+            write_in(out_root)
+            runs[name] = run_pack_path(fa, name, main_fn, argv + extra,
+                                       by_batch[b], sites, timer, out_root,
+                                       frames_of)
+        diffs = compare_pack_runs(path, runs, decisions)
+        live = liveness(runs["pack"]["tracks"])
+        if live["live_frames"] == 0 or live["token_spread"] == 0:
+            raise AssertionError(f"{path}: nothing tracked: {live}")
+        row = {"diffs": diffs, "liveness": live,
+               "limits": {"same_batch": PACK_SAME,
+                          "default_batch": PACK_DEFAULT}}
+        for name, r in runs.items():
+            row[name] = {k: r[k] for k in (
+                "wall_s", "encode_s", "tracking_s", "object_frames",
+                "object_fps", "launches", "flash_by_site")}
+        if path == "gt":
+            for name, r in runs.items():
+                seeds = sum(len(s) for s in r["runtime"].values())
+                row[name]["seeds"] = seeds
+                row[name]["seeds_per_s"] = seeds / r["tracking_s"]
+            if row["pack"]["seeds"] != 8:
+                raise AssertionError(f"GT seeds: {row['pack']['seeds']}, "
+                                     f"want 8 (2 videos x 4 onsets)")
+        out[path] = row
+        log(f"  {path}: " + "; ".join(
+            f"{name} (obj_batch {by_b}) {row[name]['tracking_s']:.2f} s "
+            f"tracking + {row[name]['encode_s']:.2f} s encode, "
+            f"{row[name]['object_fps']:.2f} object-fps"
+            + (f", {row[name]['seeds_per_s']:.3f} seeds/s"
+               if path == "gt" else "")
+            + f", flash {row[name]['flash_by_site']}"
+            for name, by_b in (("seq", paths[path][6]), ("pack", 8),
+                               ("seq8", 8))))
+        log(f"  {path}: packed vs sequential at obj_batch 8 "
+            f"{diffs['same_batch']} (limits {PACK_SAME}); vs the default "
+            f"obj_batch {diffs['default_batch']} (limits {PACK_DEFAULT}); "
+            f"{live['live_frames']:.3f} of the frames tracked, token "
+            f"spread {live['token_spread']:.3g}")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    shutil.rmtree(os.path.join(grid_root, "datasets"))
+    shutil.rmtree(os.path.join(gd_root, "datasets"))
+    shutil.rmtree(os.path.join(gt_root, "datasets"))
+    log(f"  peak memory {out['peak_memory_gb']:.2f} GB; predictors built "
+        f"in {build_s:.1f} s; card {smi_line()}")
+    del by_batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_video(t: int, hw: tuple, seed: int) -> list:
+    """Tiny frames with a bright box moving right; both axes at most 64,
+    so no frame downscales to SAM2Config.tiny_test's 64."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(t):
+        f = rng.integers(0, 60, hw + (3,), dtype=np.uint8)
+        x = (4 + 3 * i) % (hw[1] - 12)
+        f[6:20, x:x + 10] = 220
+        frames.append(f)
+    return frames
+
+
+def small_box(hw, y0, y1, x0, x1) -> np.ndarray:
+    m = np.zeros(hw, np.uint8)
+    m[y0:y1, x0:x1] = 1
+    return m
+
+
+def small_gt(t, hw, y0, y1, x0, x1, absent=()) -> np.ndarray:
+    m = np.zeros((t,) + hw, np.uint8)
+    for f in range(t):
+        if f not in absent:
+            x = (x0 + 2 * f) % max(hw[1] - (x1 - x0), 1)
+            m[f, y0:y1, x:x + (x1 - x0)] = 1
+    return m
+
+
+# tiny videos: (id, frames, (H, W), seed, grid prompts [(frame, mask)])
+SMALL_PACK_VIDEOS = [
+    ("sA", 6, (48, 64), 0, [(0, (6, 20, 4, 14)), (0, (24, 40, 30, 52)),
+                            (0, (2, 12, 50, 62)), (2, (30, 44, 2, 20))]),
+    ("sB", 4, (64, 64), 1, [(1, (6, 20, 7, 17)), (1, (40, 60, 40, 60))]),
+    ("sC", 9, (40, 56), 2, [(0, (6, 20, 4, 14)), (0, (22, 38, 30, 50)),
+                            (3, (2, 14, 36, 52)), (4, (20, 36, 4, 24)),
+                            (4, (4, 18, 20, 34))]),
+]
+SMALL_GT = {
+    "sA": {"1": (6, 20, 4, 14, ()), "2": (24, 40, 30, 42, ())},
+    # two onsets; one onset at frame 3 beside the longer slots
+    "sC": {"3": (6, 20, 4, 14, ()), "4": (22, 36, 20, 32, (2,)),
+           "5": (8, 22, 30, 44, (0, 1, 2))},
+}
+
+
+def run_packed_small_reference(fa) -> dict:
+    """Phase 14: the packed paths at SAM2Config.tiny_test, fp32, the flash
+    kernel's thresholds lowered so it runs: packed grid tracks, packed
+    expressions, sequential and packed GT on the card against the CPU (the
+    plain versions); on the card, packed against sequential under
+    tests/test_packed.py's bounds; and a planted fault (bank pushes on a
+    slot's idle steps) that must break the GT agreement."""
+    from sola_torch.core import rle
+    from sola_torch.trackgen import (engine, packed_engine, tokens_gdino,
+                                     tokens_gt)
+    from sola_torch.trackgen.sam2 import packed
+    from sola_torch.trackgen.sam2.convert import build_sam2
+    from sola_torch.trackgen.sam2.model import SAM2Config
+    from sola_torch.trackgen.sam2.video import SAM2VideoPredictor
+    root = os.path.join(OUT_DIR, "packed_small")
+
+    def predictor(device):
+        # seed 1: tracked masks cover about half a frame. At seeds 0 and
+        # 2-5 the tiny model finds no object after the cond frame, so every
+        # tracked mask is empty, every token is no_obj_ptr, and neither
+        # the agreement nor the planted fault would test anything
+        model = fused_everywhere(build_sam2(cfg=SAM2Config.tiny_test(64),
+                                            seed=1, device=device))
+        return SAM2VideoPredictor(model, obj_batch=4,
+                                  feature_dtype=torch.float32,
+                                  compute_dtype=torch.float32)
+
+    def grid_tracks(pred, packed_run):
+        """Tracks of SMALL_PACK_VIDEOS' grid prompts, packed or one video
+        at a time: {video: {prompt: (masklet, tokens)}} and censuses."""
+        tracks, censuses, jobs = {}, {}, []
+        for vid, t, hw, seed, specs in SMALL_PACK_VIDEOS:
+            state = pred.init_state(small_video(t, hw, seed))
+            prompts = [engine.PromptMask(prompt_id=i, frame_idx=f,
+                                         segmentation=small_box(hw, *box))
+                       for i, (f, box) in enumerate(specs)]
+            tracks[vid] = {}
+
+            def on_track(r, d=tracks[vid]):
+                d[r.prompt_id] = (r.masklet, r.tokens)
+            if packed_run:
+                jobs.append(packed_engine.VideoJob(
+                    video_id=vid, state=state, prompts=prompts,
+                    n_frames=t, n_max_tracks=16, on_track=on_track))
+            else:
+                censuses[vid] = engine.generate_tracks(
+                    pred, state, prompts, n_frames=t, n_max_tracks=16,
+                    on_track=on_track)
+        if packed_run:
+            for job, c in zip(jobs, packed_engine.generate_tracks_packed(
+                    pred, jobs)):
+                censuses[job.video_id] = c
+        return tracks, censuses
+
+    def expressions(pred, out_root, packed_run):
+        vid, t, hw, seed, _ = SMALL_PACK_VIDEOS[0]
+        prompts = []
+        for e, x in enumerate((4, 24, 40)):
+            for fi in (0, 1):
+                m = small_box(hw, 6 + 6 * fi, 20 + 6 * fi, x, x + 14)
+                prompts.append({"segmentation": rle.encode(m),
+                                "stability_score": 0.95, "frame_idx": fi,
+                                "expression_id": str(e),
+                                "prompt_id": len(prompts)})
+        path = os.path.join(root, f"{vid}_gdino.json")
+        with open(path, "w") as f:
+            json.dump({"video_id": vid, "bin_size": 1,
+                       "prompt_masks": prompts}, f)
+        state = pred.init_state(small_video(t, hw, seed))
+        kw = dict(bin_size=1, n_max_tracks=8, log=lambda s: None)
+        track_root = os.path.join(out_root, "sam2_tracks")
+        if packed_run:
+            census = tokens_gdino.run_expressions_packed(
+                pred, state, vid, ["0", "1", "2"], path, track_root,
+                "mevis", "valid_u", t, **kw)
+        else:
+            census = {e: tokens_gdino.run_expression(
+                pred, state, vid, e, path, track_root, "mevis", "valid_u",
+                t, **kw) for e in ("0", "1", "2")}
+        return read_tracks(track_root), census
+
+    def gt(pred, out_root, packed_run):
+        items = []
+        for vid, objs in SMALL_GT.items():
+            _, t, hw, seed, _ = next(v for v in SMALL_PACK_VIDEOS
+                                     if v[0] == vid)
+            gts = {g: small_gt(t, hw, *spec) for g, spec in objs.items()}
+            items.append({"video_id": vid, "gt_masklets": gts,
+                          "n_frames": t,
+                          "state": pred.init_state(small_video(t, hw,
+                                                               seed))})
+        track_root = os.path.join(out_root, "sam2_tracks")
+        if packed_run:
+            census = tokens_gt.run_videos_packed_gt(
+                pred, items, track_root, "mevis", "train",
+                save_prec_rec_iou=True, log=lambda s: None)
+        else:
+            census = {it["video_id"]: tokens_gt.run_video(
+                pred, it["state"], it["video_id"], it["gt_masklets"],
+                it["n_frames"], track_root, "mevis", "train",
+                save_prec_rec_iou=True, log=lambda s: None)
+                for it in items}
+        return read_tracks(track_root), census
+
+    os.makedirs(root)
+    strip = lambda c: {k: v for k, v in c.items() if k not in ("time",
+                                                               "fps")}
+    res, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        pred = predictor(device)
+        before = fa.launches
+        for mode in ("seq", "pack"):
+            res[(device, "grid", mode)] = grid_tracks(pred, mode == "pack")
+            res[(device, "gdino", mode)] = expressions(
+                pred, os.path.join(root, f"gdino_{device}_{mode}"),
+                mode == "pack")
+            res[(device, "gt", mode)] = gt(
+                pred, os.path.join(root, f"gt_{device}_{mode}"),
+                mode == "pack")
+        launches[device] = fa.launches - before
+    if launches["cuda"] == 0 or launches["cpu"] != 0:
+        raise AssertionError(f"small packed launches: {launches}")
+
+    def grid_as_tracks(tr):
+        return {f"{v}/{p}": (m, tok, {}, p) for v, d in tr.items()
+                for p, (m, tok) in d.items()}
+
+    report = {}
+    for path in ("grid", "gdino", "gt"):
+        for a, b, limits in (
+                (("cuda", path, "pack"), ("cpu", path, "pack"),
+                 SMALL_CARD_CPU),
+                (("cuda", path, "seq"), ("cpu", path, "seq"),
+                 SMALL_CARD_CPU),
+                (("cuda", path, "seq"), ("cuda", path, "pack"),
+                 SMALL_PACK_GT if path == "gt" else SMALL_PACK)):
+            (ta, ca), (tb, cb) = res[a], res[b]
+            if path == "grid":
+                ta, tb = grid_as_tracks(ta), grid_as_tracks(tb)
+                ca = {v: strip(c) for v, c in ca.items()}
+                cb = {v: strip(c) for v, c in cb.items()}
+                same = ca == cb
+            elif path == "gdino":
+                same = {e: strip(c) for e, c in ca.items()} == \
+                    {e: strip(c) for e, c in cb.items()}
+            else:
+                same = ({v: {o: (e["gt_anno_id"], e["seed_frame"])
+                             for o, e in s.items()} for v, s in ca.items()}
+                        == {v: {o: (e["gt_anno_id"], e["seed_frame"])
+                                for o, e in s.items()}
+                            for v, s in cb.items()})
+            d = track_differences(ta, tb)
+            bad = beyond(d, limits)
+            if bad or not same:
+                raise AssertionError(f"small {path}: {a} vs {b}: {bad}, "
+                                     f"censuses equal {same}")
+            report[f"{path}: {a[0]} {a[2]} vs {b[0]} {b[2]}"] = d
+
+    # the planted fault: the gate taken away, so a slot pushes memories of
+    # its idle steps (its last frame again) into its banks
+    gate = packed.gate
+    packed.gate = lambda active: np.ones_like(active)
+    try:
+        fault, _ = gt(predictor("cuda"), os.path.join(root, "gt_fault"),
+                      True)
+    finally:
+        packed.gate = gate
+    live = [np.std(tok, axis=0).max() > 0 and 0 < m.mean() < 1
+            for m, tok, _, _ in res[("cuda", "gt", "seq")][0].values()]
+    if not all(live):
+        raise AssertionError(f"GT tracks with constant tokens or empty/full "
+                             f"masks: {live}")
+    d_fault = track_differences(res[("cuda", "gt", "seq")][0], fault)
+    if not beyond(d_fault, SMALL_PACK_GT):
+        raise AssertionError(f"the ungated push passes the packed GT check: "
+                             f"{d_fault}")
+    log(f"  tiny_test fp32 (kernel route, {launches['cuda']} launches on "
+        f"the card): " + "; ".join(f"{k} {v}" for k, v in report.items()))
+    log(f"  limits: card vs cpu {SMALL_CARD_CPU}, packed vs sequential "
+        f"{SMALL_PACK} (GT {SMALL_PACK_GT}); the ungated push gives "
+        f"{d_fault}, rejected")
+    return {"differences": report, "fault": d_fault,
+            "card_launches": launches["cuda"],
+            "limits": {"card_cpu": SMALL_CARD_CPU, "pack": SMALL_PACK,
+                       "pack_gt": SMALL_PACK_GT}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
@@ -2691,6 +3371,12 @@ def main() -> None:
     grid_path = run_grid_main_path(fa)
     log("phase 12: grid path small reference")
     grid_small = run_grid_small_reference(fa)
+    log("phase 13: packed propagation and GT tracks at SAM2 hiera-L: "
+        "tokens_grid --video_pack 2, tokens_gdino --expr_pack 3, "
+        "tokens_gt [--video_pack 2]")
+    packed_paths = run_packed_paths(fa)
+    log("phase 14: packed paths small reference")
+    packed_small = run_packed_small_reference(fa)
 
     head = kernel["rows"][0]  # memory cross-attention: most of the time
     # the main path's shape: 3 expressions padded to 4, fp32 (CLI default)
@@ -2707,7 +3393,11 @@ def main() -> None:
                            "tokens_grid_from_grid_prompts":
                            grid_path["launches"]["tokens_grid"],
                            "eval": grid_path["launches"]["eval"],
-                           "inference": grid_path["launches"]["inference"]},
+                           "inference": grid_path["launches"]["inference"],
+                           **{f"{path}_{run}": packed_paths[path][run][
+                               "launches"]
+                              for path in ("grid", "gdino", "gt")
+                              for run in ("seq", "pack", "seq8")}},
         "ms_deform_attn_fwd": {
             "tokens_grid": main_path["deform_launches"],
             "gdino": gdino_path["launches"]["ms_deform_attn_fwd"]}}
@@ -2770,6 +3460,8 @@ def main() -> None:
                    "selection_small_reference": training_small,
                    "grid_path": grid_path,
                    "grid_small_reference": grid_small,
+                   "packed_paths": packed_paths,
+                   "packed_small_reference": packed_small,
                    "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items()

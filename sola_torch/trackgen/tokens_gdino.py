@@ -1,12 +1,13 @@
 """GroundingDINO-prompt token generation: per-expression tracking.
 
-Counterpart of ``sola_tpu/trackgen/tokens_gdino.py`` (generate_tokens_gdino.py),
-sequential path: prompts are filtered per expression_id and by stability
-score (>= 0.85), tracked with ``n_max_tracks=16``, and written under
+Counterpart of ``sola_tpu/trackgen/tokens_gdino.py`` (generate_tokens_gdino.py):
+prompts are filtered per expression_id and by stability score (>= 0.85),
+tracked with ``n_max_tracks=16``, and written under
 ``<video>/<expression>/``, the nesting the data layer keys on
 (dataloader.py:122-124). Resumable per (video, expression) through
 ``runtime_info.json`` (generate_tokens_gdino.py:138-145). The predictor runs
-on ``--device`` (CUDA by default).
+on ``--device`` (CUDA by default); ``--expr_pack N`` packs N expressions of
+a video into shared propagation rounds (``packed_engine``).
 """
 
 from __future__ import annotations
@@ -96,6 +97,58 @@ def run_expression(predictor, state, video_id: str, expression_id: str,
     return census
 
 
+def run_expressions_packed(predictor, state, video_id: str,
+                           expression_ids: list, prompt_path: str,
+                           track_root: str, dataset: str, data_type: str,
+                           n_frames: int, *,
+                           bin_size: int = 4, batch_size: int = 4,
+                           miou_thresh: float = 0.7,
+                           stability_score_thresh: float = 0.85,
+                           n_max_tracks: int = 16,
+                           gt_masklets: Optional[dict] = None,
+                           output_dir_name: str = "gdino_tracks",
+                           log: Callable[[str], None] = print) -> dict:
+    """Pack several expressions of one video into shared propagation
+    rounds: they share the encoded frame features (one device region) and
+    their prompt batches fill the propagation batch's object slots
+    together. Per-expression artifacts and censuses match
+    ``run_expression``."""
+    from sola_torch.trackgen import packed_engine
+
+    def make_on_track(expression_id):
+        def on_track(result: engine.TrackResult) -> None:
+            metrics = None
+            if gt_masklets is not None:
+                metrics = gt_utils.metrics_vs_gt(result.masklet_small,
+                                                 gt_masklets)
+            tracks_lib.save_track(
+                track_root, output_dir_name, dataset, data_type, video_id,
+                result.prompt_id, rle.encode_masklet(result.masklet),
+                "SAM2 AMG MASK", result.tokens,
+                expression_id=expression_id, metrics=metrics)
+        return on_track
+
+    jobs, extras = [], {}
+    for expression_id in expression_ids:
+        prompts, n_not_used, n_total = load_expression_prompts(
+            prompt_path, video_id, bin_size, expression_id,
+            stability_score_thresh)
+        extras[expression_id] = (n_not_used, n_total)
+        jobs.append(packed_engine.VideoJob(
+            video_id=f"{video_id}/{expression_id}", state=state,
+            prompts=prompts, n_frames=n_frames, batch_size=batch_size,
+            miou_thresh=miou_thresh, n_max_tracks=n_max_tracks,
+            scan_all_for_same_frame=False,
+            on_track=make_on_track(expression_id)))
+    censuses = packed_engine.generate_tracks_packed(predictor, jobs,
+                                                    log=log)
+    out = {}
+    for expression_id, census in zip(expression_ids, censuses):
+        census["n_not_used"], census["n_total"] = extras[expression_id]
+        out[expression_id] = census
+    return out
+
+
 def main(argv=None, predictor_factory=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--dataset", type=str, default="mevis")
@@ -117,19 +170,18 @@ def main(argv=None, predictor_factory=None) -> None:
                         help="encode the next video while the current one "
                              "propagates (0 to serialize)")
     parser.add_argument("--expr_pack", type=int, default=1,
-                        help="expressions per packed propagation round; only "
-                             "1 (sequential) is ported so far")
+                        help="expressions per packed propagation round: >1 "
+                             "packs several expressions' prompt batches "
+                             "into one SAM2 propagation batch over the "
+                             "shared video features (results match)")
     parser.add_argument("--obj_batch", type=int, default=0,
                         help="SAM2 object slots per propagation pass; 0 = "
-                             "batch_size")
+                             "batch_size (sequential) or 8 (packed)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device of the SAM2 predictor")
     parser.add_argument("--data_root", type=str, default=".")
     parser.add_argument("--output_root", type=str, default=".")
     args = parser.parse_args(argv)
-    if args.expr_pack > 1:
-        raise NotImplementedError(
-            "--expr_pack > 1 needs the packed engine, not yet ported")
 
     assert args.data_type in meta_lib.DATA_TYPES[args.dataset]
     data_dir = os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
@@ -154,9 +206,11 @@ def main(argv=None, predictor_factory=None) -> None:
         with open(os.path.join(data_dir, "mask_dict.json")) as f:
             mask_dict = json.load(f)
 
+    obj_batch = args.obj_batch or (
+        args.batch_size if args.expr_pack <= 1 else 8)
     if predictor_factory is None:
         predictor_factory = _default_predictor_factory(
-            args.sam2_ckpt, args.obj_batch or args.batch_size, args.device)
+            args.sam2_ckpt, obj_batch, args.device)
     predictor = predictor_factory()
 
     runtime_path = os.path.join(out_dir, "runtime_info.json")
@@ -205,6 +259,25 @@ def main(argv=None, predictor_factory=None) -> None:
         state = prefetcher.get(video_id, frames_dir)
         pending = [e for e in video_meta["expressions"]
                    if e not in runtime_info[video_id]]
+        if args.expr_pack > 1:
+            for g0 in range(0, len(pending), args.expr_pack):
+                group = pending[g0:g0 + args.expr_pack]
+                censuses = run_expressions_packed(
+                    predictor, state, video_id, group,
+                    os.path.join(prompt_dir, f"{video_id}.json"),
+                    track_root, args.dataset, args.data_type, n_frames,
+                    bin_size=args.bin_size, batch_size=args.batch_size,
+                    miou_thresh=args.miou_thresh,
+                    stability_score_thresh=args.stability_score_thresh,
+                    n_max_tracks=args.n_max_tracks,
+                    gt_masklets=gt_masklets)
+                for expression_id, census in censuses.items():
+                    census["fps"] = n_frames / max(census["time"], 1e-9)
+                    runtime_info[video_id][expression_id] = census
+                os.makedirs(out_dir, exist_ok=True)
+                with open(runtime_path, "w") as f:
+                    json.dump(runtime_info, f, indent=4)
+            continue
         for expression_id in pending:
             start = time.time()
             census = run_expression(

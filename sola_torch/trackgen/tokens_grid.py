@@ -7,8 +7,9 @@ video predictor, and writes sam2_tracks/grid_tracks artifacts plus
 
 Canonical sharding flags are ``--pid/--n_pids`` (the reference mixes
 ``--n_pid``/``args.n_pids`` and crashes, SURVEY.md §2.5). Counterpart of
-``sola_tpu/trackgen/tokens_grid.py``, sequential path: the predictor runs
-on ``--device`` (CUDA by default).
+``sola_tpu/trackgen/tokens_grid.py``: the predictor runs on ``--device``
+(CUDA by default); ``--video_pack N`` packs N videos' prompt batches into
+shared propagation rounds (``packed_engine``).
 """
 
 from __future__ import annotations
@@ -85,6 +86,22 @@ def run_video(predictor, video_id: str, frames_dir: str, prompt_path: str,
         track_root = os.path.dirname(os.path.dirname(os.path.dirname(
             output_root)))
 
+    census = engine.generate_tracks(
+        predictor, state, prompts,
+        n_frames=n_frames, batch_size=batch_size, miou_thresh=miou_thresh,
+        n_max_tracks=n_max_tracks,
+        on_track=_make_on_track(track_root, output_dir_name, dataset,
+                                data_type, video_id, gt_masklets),
+        scan_all_for_same_frame=True, log=log)
+    census["n_not_used"] = n_not_used
+    if census["n_tracked"] < n_max_tracks:
+        assert not census["not_tracked_prompt_ids"], (
+            f"untracked prompts remain: {census['not_tracked_prompt_ids']}")
+    return census
+
+
+def _make_on_track(track_root, output_dir_name, dataset, data_type,
+                   video_id, gt_masklets):
     def on_track(result: engine.TrackResult) -> None:
         metrics = None
         if gt_masklets is not None:
@@ -94,17 +111,53 @@ def run_video(predictor, video_id: str, frames_dir: str, prompt_path: str,
             track_root, output_dir_name, dataset, data_type, video_id,
             result.prompt_id, rle.encode_masklet(result.masklet),
             "SAM2 AMG MASK", result.tokens, metrics=metrics)
+    return on_track
 
-    census = engine.generate_tracks(
-        predictor, state, prompts,
-        n_frames=n_frames, batch_size=batch_size, miou_thresh=miou_thresh,
-        n_max_tracks=n_max_tracks, on_track=on_track,
-        scan_all_for_same_frame=True, log=log)
-    census["n_not_used"] = n_not_used
-    if census["n_tracked"] < n_max_tracks:
-        assert not census["not_tracked_prompt_ids"], (
-            f"untracked prompts remain: {census['not_tracked_prompt_ids']}")
-    return census
+
+def run_videos_packed(predictor, video_ids, frames_dirs, prompt_paths,
+                      output_root, dataset, data_type, *,
+                      bin_size: int = 4, batch_size: int = 4,
+                      miou_thresh: float = 0.7, n_max_tracks: int = 64,
+                      gt_masklets_by_video: Optional[dict] = None,
+                      output_dir_name: str = "grid_tracks",
+                      log: Callable[[str], None] = print,
+                      states: Optional[dict] = None,
+                      track_root: Optional[str] = None) -> dict:
+    """Pack several videos into shared propagation rounds
+    (packed_engine.generate_tracks_packed): slots the per-video batches
+    would leave idle carry other videos' objects. Artifacts and censuses
+    match per-video ``run_video`` calls."""
+    from sola_torch.trackgen import packed_engine
+    if track_root is None:
+        track_root = os.path.dirname(os.path.dirname(os.path.dirname(
+            output_root)))
+    jobs = []
+    n_not_used = {}
+    for video_id, frames_dir, prompt_path in zip(video_ids, frames_dirs,
+                                                 prompt_paths):
+        prompts, _ = load_prompt_masks(prompt_path, video_id, bin_size)
+        n_not_used[video_id] = engine.mark_not_used(prompts, bin_size)
+        state = (states or {}).get(video_id)
+        if state is None:
+            state = predictor.init_state(None, video_path=frames_dir)
+        gt = (gt_masklets_by_video or {}).get(video_id)
+        jobs.append(packed_engine.VideoJob(
+            video_id=video_id, state=state, prompts=prompts,
+            n_frames=state.num_frames, batch_size=batch_size,
+            miou_thresh=miou_thresh, n_max_tracks=n_max_tracks,
+            on_track=_make_on_track(track_root, output_dir_name, dataset,
+                                    data_type, video_id, gt)))
+    censuses = packed_engine.generate_tracks_packed(predictor, jobs,
+                                                    log=log)
+    out = {}
+    for job, census in zip(jobs, censuses):
+        census["n_not_used"] = n_not_used[job.video_id]
+        if census["n_tracked"] < n_max_tracks:
+            assert not census["not_tracked_prompt_ids"], (
+                f"untracked prompts remain in {job.video_id}: "
+                f"{census['not_tracked_prompt_ids']}")
+        out[job.video_id] = census
+    return out
 
 
 def main(argv=None, predictor_factory=None) -> None:
@@ -127,19 +180,17 @@ def main(argv=None, predictor_factory=None) -> None:
                         help="encode the next video while the current one "
                              "propagates (0 to serialize)")
     parser.add_argument("--video_pack", type=int, default=1,
-                        help="videos per packed propagation round; only 1 "
-                             "(sequential) is ported so far")
+                        help="videos per packed propagation round: >1 packs "
+                             "several videos' prompt batches into one SAM2 "
+                             "propagation batch (results match sequential)")
     parser.add_argument("--obj_batch", type=int, default=0,
                         help="SAM2 object slots per propagation pass; 0 = "
-                             "batch_size")
+                             "batch_size (sequential) or 8 (packed)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device of the SAM2 predictor")
     parser.add_argument("--data_root", type=str, default=".")
     parser.add_argument("--output_root", type=str, default=".")
     args = parser.parse_args(argv)
-    if args.video_pack > 1:
-        raise NotImplementedError(
-            "--video_pack > 1 needs the packed engine, not yet ported")
 
     assert args.data_type in meta_lib.DATA_TYPES[args.dataset]
     data_dir = os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
@@ -163,7 +214,8 @@ def main(argv=None, predictor_factory=None) -> None:
         with open(os.path.join(data_dir, "mask_dict.json")) as f:
             mask_dict = json.load(f)
 
-    obj_batch = args.obj_batch or args.batch_size
+    obj_batch = args.obj_batch or (
+        args.batch_size if args.video_pack <= 1 else 8)
     if predictor_factory is None:
         predictor_factory = _default_predictor_factory(args.sam2_ckpt,
                                                        obj_batch, args.device)
@@ -190,6 +242,34 @@ def main(argv=None, predictor_factory=None) -> None:
         return gt_utils.get_masklets_ytbvos(
             os.path.join(data_dir, "Annotations", video_id), reshape=True)
 
+    if args.video_pack > 1:
+        for g0 in range(0, len(work), args.video_pack):
+            group = work[g0:g0 + args.video_pack]
+            for vid in group:
+                prefetcher.schedule(vid, frames_dir_of(vid))
+            # overlap the whole next group's encodes with this group's
+            # packed rounds, not just its first video
+            for nxt in work[g0 + args.video_pack:
+                            g0 + 2 * args.video_pack]:
+                prefetcher.schedule(nxt, frames_dir_of(nxt))
+            states = {vid: prefetcher.get(vid, frames_dir_of(vid))
+                      for vid in group}
+            censuses = run_videos_packed(
+                predictor, group, [frames_dir_of(v) for v in group],
+                [os.path.join(prompt_dir, f"{v}.json") for v in group],
+                out_dir, args.dataset, args.data_type,
+                bin_size=args.bin_size, batch_size=args.batch_size,
+                miou_thresh=args.miou_thresh,
+                n_max_tracks=args.n_max_tracks,
+                gt_masklets_by_video={v: gt_for(v) for v in group},
+                states=states)
+            runtime_info.update(censuses)
+            os.makedirs(out_dir, exist_ok=True)
+            with open(runtime_path, "w") as f:
+                json.dump(runtime_info, f, indent=4)
+        prefetcher.close()
+        return
+
     for work_idx, video_id in enumerate(work):
         prefetcher.schedule(video_id, frames_dir_of(video_id))
         if work_idx + 1 < len(work):
@@ -214,11 +294,13 @@ def main(argv=None, predictor_factory=None) -> None:
 
 
 def _default_predictor_factory(ckpt_path: str, obj_batch: int = 4,
-                               device: str = "cuda"):
+                               device: str = "cuda", seed: int = 0):
+    """SAM2 video predictor factory of the track-generation CLIs; ``seed``
+    draws the random weights when ``ckpt_path`` does not exist."""
     def factory():
         from sola_torch.trackgen.sam2.convert import load_sam2_video_predictor
         return load_sam2_video_predictor(ckpt_path, obj_batch=obj_batch,
-                                         device=device)
+                                         device=device, seed=seed)
     return factory
 
 

@@ -39,7 +39,9 @@ def test_every_module_imports_without_jax():
                  "train.loop", "train.loss", "train.schedule", "train.state",
                  "trackgen.sam2.amg", "trackgen.prompts_grid", "core.ccl",
                  "eval.evaluator", "eval.inference", "eval.metrics",
-                 "cli.eval", "cli.inference", "utils.viz"):
+                 "cli.eval", "cli.inference", "utils.viz",
+                 "trackgen.sam2.packed", "trackgen.packed_engine",
+                 "trackgen.tokens_gt"):
         assert f"sola_torch.{name}" in mods, name
     code = f"""
 import importlib.abc, sys

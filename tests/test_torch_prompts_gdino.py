@@ -403,7 +403,3 @@ def test_main_clis_match_jax(stack, tmp_path):
     for e in EXPRESSIONS:
         assert _strip(tc[e]) == _strip(jc[e])
 
-
-def test_expr_pack_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError):
-        ttokens.main(["--expr_pack", "2", "--data_root", str(tmp_path)])

@@ -199,7 +199,3 @@ def test_main_cli_with_jpeg_frames(tmp_path, predictors):
         _tracks(jtracks, jrle, str(tmp_path / "jax" / "sam2_tracks")),
         _tracks(ttracks, trle, str(tmp_path / "torch" / "sam2_tracks")))
 
-
-def test_video_pack_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError):
-        ttokens.main(["--video_pack", "2", "--data_root", str(tmp_path)])
