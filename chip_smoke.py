@@ -98,6 +98,23 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    card against the CPU; packed against sequential on the card under
    tests/test_packed.py's bounds; bank pushes on idle steps (the gate taken
    away) must break the packed GT agreement.
+15. The distributed modules (``sola_torch/parallel``) on the card, after
+   the phase-2 build: an NCCL group of 1 (an all_reduce of a card tensor,
+   cp attention over the degenerate group equal to the kernel, a mesh
+   step at n_model 1 equal to the plain step); the forward and the fused
+   backward against their plain versions at a mesh rank's shapes (4 of 8
+   batch entries, 4 of 8 heads; motion_attn packed 4 heads a block);
+   then processes of this script that share the card in gloo groups (each
+   under a time limit, any failure fails the phase): 4 ranks (2 data x 2
+   model) run the train CLI at SelectionConfig() with the flash route on
+   a cut phase-9 corpus, against one process: log.txt within limits,
+   equal counts, weights within lr-scaled limits, gathered checkpoints
+   that load strictly; out_proj's forward sum planted away must break the
+   limits; with dropout, replicated parameters bit-equal on every rank;
+   flash launches by rank and site. 2 ranks run cp attention over the
+   memory cross shape's 2 key shards (one entry's second shard fully
+   masked) against the kernel over all keys and the plain version, and
+   the eval CLI over the run's checkpoint against one process.
 
 The second-to-last line is a JSON object listing every ported kernel; the
 line before it is the card's name and power limit; the last line is
@@ -3309,7 +3326,595 @@ def run_packed_small_reference(fa) -> dict:
                        "pack_gt": SMALL_PACK_GT}}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the distributed modules on one card: an NCCL group of one, and
+# gloo groups whose ranks share the card (context-parallel attention, mesh
+# training from the train CLI, the sharded eval CLI)
+# ---------------------------------------------------------------------------
+
+# Phase 15's limits (PERF.md, written before the first run). cp attention
+# over 2 key shards against the kernel over all keys and against the plain
+# version: phase 2's bf16 limits. Mesh training (2 data x 2 model ranks)
+# against one process, fp32 with TF32 off: the log.txt numbers within
+# MESH_LOG_ATOL and the confusion counts equal (sharded products and sums
+# reduce in another order, as the card against the CPU in phase 10); the
+# weights within MESH_STEP_LR x lr a step, since AdamW moves an element by
+# about lr a step whatever its gradient's size, so two runs whose tiny
+# gradients differ in sign part by up to 2 lr a step; the planted fault
+# (out_proj's forward sum removed) must break the log limit. The sharded
+# eval's JSONs within phase 12's eval limits, counts equal.
+MESH_LOG_ATOL = 2e-3
+MESH_STEP_LR = 2.0
+CP_WORLD, MESH_WORLD, MESH_N_MODEL = 2, 4, 2
+# mesh training's corpus: phase 9's batch shapes (40 of 64 tracks, 64
+# frames, batch 8), cut to 4 train videos (2 steps an epoch) and 2 valid
+MESH_TRAIN_VIDEOS, MESH_VALID_VIDEOS = 4, 2
+RANKS_TIMEOUT_S = 300
+CP_SEED = 15
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(role: str, world: int, workdir: str) -> list:
+    """``world`` processes of ``chip_smoke.py --rank ROLE WORKDIR`` on this
+    card, in a group on a free port (torchrun's environment variables);
+    waits for every rank under RANKS_TIMEOUT_S and raises if any fails or
+    hangs. Returns the wall seconds and each rank's result JSON."""
+    port = str(free_port())
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        out = open(os.path.join(workdir, f"{role}_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", role,
+             workdir], env=env, stdout=out, stderr=subprocess.STDOUT,
+            cwd=ROOT), out))
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    seconds = time.perf_counter() - t0
+    failed = []
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(workdir, f"{role}_rank{r}.log")) as f:
+                failed.append(f"rank {r} exit {p.returncode}:\n"
+                              f"{f.read()[-3000:]}")
+    if failed:
+        raise AssertionError(f"{role} ranks failed:\n" + "\n".join(failed))
+    results = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"{role}_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return seconds, results
+
+
+def cp_inputs():
+    """Phase 2's memory cross-attention inputs (bf16, 4 x 1 x 4096 x 28736,
+    D 256, its key mask) from CP_SEED, with every key of batch entry 0 in
+    the second half masked: that entry's second rank holds no valid key."""
+    gen = torch.Generator().manual_seed(CP_SEED)
+    mask = memory_cross_mask(4, gen)
+    mask[0, 28736 // CP_WORLD:] = False
+    q, k, v = (torch.randn(4, 1, n, 256, generator=gen).cuda().to(
+        torch.bfloat16) for n in (4096, 28736, 28736))
+    return q, k, v, mask
+
+
+def rank_cp_eval(workdir: str) -> dict:
+    """Rank role of the 2-rank gloo group: cp attention over this rank's
+    key shard (flash launches counted, the kernel timed alone while the
+    other rank waits, then the combine), then the eval CLI's share."""
+    import torch.distributed as dist
+
+    from sola_torch.cli import eval as eval_cli
+    from sola_torch.ops import flash_attention as fa
+    from sola_torch.parallel import cp, distributed
+    distributed.initialize(backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    group = dist.group.WORLD
+    q, k, v, mask = cp_inputs()
+    k, v, mask = cp.shard_keys(k, v, mask, group)
+    torch.cuda.synchronize()
+    dist.barrier()
+    fa.launches = 0
+    out = cp.cp_attention(q, k, v, mask, group)
+    torch.cuda.synchronize()
+    launches = fa.launches  # read right after
+    if rank == 0:
+        torch.save(out.cpu(), os.path.join(workdir, "cp_out.pt"))
+    import torch.nn.functional as F
+    times = {}
+    for r in range(world):  # one rank on the card at a time
+        dist.barrier()
+        if r == rank:
+            times = {
+                "ms": cuda_ms(lambda: fa.fused_attention_lse(q, k, v, mask),
+                              5),
+                "plain_ms": cuda_ms(
+                    lambda: fa.attention_reference(q, k, v, mask), 3),
+                "library_ms": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask[:, None, None, :]), 5)}
+    least, by = bound(*attention_work(*q.shape[:3], k.shape[2], q.shape[3],
+                                      mask, q.element_size()), q.dtype)
+    times.update(bound_ms=least, bound_by=by)
+    dist.barrier()
+    o_i, lse_i = fa.fused_attention_lse(q, k, v, mask)
+    combine_ms = host_ms(lambda: cp.combine(o_i, lse_i, group), 5)
+    with open(os.path.join(workdir, "mesh.json")) as f:
+        argv = json.load(f)["eval_sharded"]
+    torch.cuda.synchronize()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    eval_cli.main(argv)
+    torch.cuda.synchronize()
+    return {"rank": rank, "cp_launches": launches,
+            "valid_keys": mask.sum(dim=1).tolist(),
+            "cp_kernel_ms": times.pop("ms"), "cp_kernel": times,
+            "cp_combine_ms": combine_ms,
+            "eval_s": time.perf_counter() - t0, "eval_launches": fa.launches}
+
+
+def rank_mesh(workdir: str) -> dict:
+    """Rank role of the 4-rank gloo group (2 data x 2 model): the train CLI
+    with dropout off (flash launches by site counted), again for one epoch
+    with out_proj's forward sum planted away, and for one epoch with the
+    configured dropout, whose replicated parameters go to a file."""
+    import torch.distributed as dist
+
+    from sola_torch.cli import train as train_cli
+    from sola_torch.ops import flash_attention as fa
+    from sola_torch.parallel import tp
+    from sola_torch.train import loop
+    with open(os.path.join(workdir, "mesh.json")) as f:
+        spec = json.load(f)
+    sites = TrainSiteCounter(fa)
+    models = []
+    build_model = loop.build_model
+
+    def build_and_watch(*args, **kwargs):  # the hooks only read counters
+        model = build_model(*args, **kwargs)
+        sites.watch(model)
+        models.append(model)
+        return model
+
+    loop.build_model = build_and_watch
+    out = {}
+    torch.cuda.synchronize()
+    fa.launches = fa.bwd_launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(spec["honest"])
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["launches"] = {"flash_attn_fwd": fa.launches,
+                       "flash_attn_bwd": fa.bwd_launches}  # read right after
+    out["launches_by_site"] = copy.deepcopy(sites.counts)
+    attn = models[0].object_lang_align_layers[0].obj_attn
+    out["local_heads"] = attn.q_proj.out_features // (
+        attn.embed_dim // attn.num_heads)
+    out["rank"] = dist.get_rank()
+    honest = tp.reduce_from_model
+    tp.reduce_from_model = lambda x, group: x
+    try:
+        train_cli.main(spec["fault"])
+    finally:
+        tp.reduce_from_model = honest
+    train_cli.main(spec["dropout"])
+    state = models[-1].state_dict()
+    dims = tp.split_dims(state)
+    torch.save({k: v.cpu() for k, v in state.items() if dims[k] is None},
+               os.path.join(workdir, f"replicated_rank{out['rank']}.pt"))
+    return out
+
+
+def run_rank(role: str, workdir: str) -> None:
+    """Entry of a rank process: runs its role and writes its result JSON."""
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py needs a CUDA device; none is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {"cp_eval": rank_cp_eval, "mesh": rank_mesh}[role](workdir)
+    with open(os.path.join(workdir, f"{role}_rank{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def rank_selection_cases(gen):
+    """Phase 8's three selection sites at a mesh rank's shapes: its data
+    index's 4 of the 8 batch entries, its 4 of the 8 heads."""
+    return [(f"{name}_rank", site, dtype, b // 2, SEL_HEADS // MESH_N_MODEL,
+             lq, lk, SEL_D, mask[:b // 2].contiguous())
+            for name, site, dtype, b, lq, lk, mask
+            in selection_attention_cases(gen)[:3]]
+
+
+def check_rank_kernels(fa, gen) -> list:
+    """The forward and the fused backward against their plain versions at a
+    mesh rank's shapes, without and with dropout (phase 8's limits);
+    motion_attn's 4 heads of 8 x 8 pack 4 to a block. Times each kernel by
+    call beside its plain version and its bound."""
+    rows = []
+    for name, site, dtype, b, h, lq, lk, d, mask in rank_selection_cases(
+            gen):
+        q, k, v, do = (torch.randn(b, h, n, d, generator=gen).cuda()
+                       for n in (lq, lk, lk, lq))
+        plan = fa.bwd_plan(h, lq, lk, d)
+        if site == "motion_attn" and plan[0] != 4:
+            raise AssertionError(f"{name}: bwd_plan {plan}, want 4 heads a "
+                                 f"block")
+        row = {"shape": name, "site": site, "b": b, "h": h, "lq": lq,
+               "lk": lk, "d": d, "plan": plan}
+        for rate in (0.0, SEL_RATE):
+            seed = SEL_SEED if rate else None
+            tag = "drop" if rate else "nodrop"
+            out, lse = fa._launch(q, k, v, mask, rate, seed)
+            args = (q, k, v, mask, do, lse, fa.bwd_delta(out, do), rate,
+                    seed)
+            grads = fa._launch_bwd_kernel(*args)
+            torch.cuda.synchronize()
+            ref, _ = fa.attention_reference(q, k, v, mask, rate, seed)
+            err, tol, rms, rms_tol = out_errors(out, ref.float(), dtype)
+            bad = grad_limits_fail(grads, fa.attention_bwd_reference(
+                q, k, v, mask, out, lse, do, rate, seed), dtype)
+            if not (err <= tol and rms <= rms_tol) or bad:
+                raise AssertionError(f"{name} rate {rate}: forward max {err}"
+                                     f" (tol {tol}), rms {rms} (tol "
+                                     f"{rms_tol}); backward {bad}")
+            row[f"fwd_{tag}_max_abs_err"] = err
+            row[f"bwd_{tag}_max_abs_err"] = max(
+                out_errors(g, r.float(), dtype)[0] for g, r in zip(
+                    grads, fa.attention_bwd_reference(
+                        q, k, v, mask, out, lse, do, rate, seed)))
+        flops, nbytes = attention_work(b, h, lq, lk, d, mask, 4)
+        bflops, bbytes = bwd_work(b, h, lq, lk, d, mask, 4)
+        for kern, call, plain, work in (
+                ("fwd", lambda: fa._launch(q, k, v, mask),
+                 lambda: fa.attention_reference(q, k, v, mask),
+                 (flops, nbytes)),
+                ("bwd", lambda: fa._launch_bwd_kernel(*args),
+                 lambda: fa.attention_bwd_reference(
+                     q, k, v, mask, out, lse, do, SEL_RATE, SEL_SEED),
+                 (bflops, bbytes))):
+            least, by = bound(*work, dtype)
+            row[kern] = {"ms": cuda_ms(call, 20), "plain_ms": cuda_ms(
+                plain, 5), "bound_ms": least, "bound_by": by}
+        # the library yardstick by call: SDPA's forward at rate 0, its
+        # backward with dropout as forward + backward - forward
+        import torch.nn.functional as F
+        attn_mask = mask[:, None, None, :]
+        row["fwd"]["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   attn_mask=attn_mask), 20)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        drop_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=attn_mask, dropout_p=SEL_RATE), 20)
+        row["bwd"]["library_ms"] = max(cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=attn_mask,
+                dropout_p=SEL_RATE).backward(do), 20) - drop_fwd, 0.0)
+        rows.append(row)
+        log(f"  {name:>21} bh={b}x{h} lq={lq} lk={lk} plan {plan}: fwd max "
+            f"err {row['fwd_drop_max_abs_err']:.3g}, bwd max err "
+            f"{row['bwd_drop_max_abs_err']:.3g}; fwd {row['fwd']['ms']:.4f}"
+            f" ms (plain {row['fwd']['plain_ms']:.4f}, SDPA "
+            f"{row['fwd']['library_ms']:.4f}, bound "
+            f"{row['fwd']['bound_ms']:.4f}), bwd with dropout "
+            f"{row['bwd']['ms']:.4f} ms (plain {row['bwd']['plain_ms']:.4f},"
+            f" SDPA {row['bwd']['library_ms']:.4f} by call, bound "
+            f"{row['bwd']['bound_ms']:.4f})")
+    return rows
+
+
+def run_nccl_world1(fa) -> dict:
+    """An NCCL group of one on this card: an all-reduce of a card tensor,
+    cp attention over the degenerate group against the kernel over all
+    keys (equal), and a mesh train step at n_model 1 against the plain
+    step (equal)."""
+    import torch.distributed as dist
+
+    from sola_torch.models.selection import SelectionConfig, init_weights
+    from sola_torch.models.selection import SelectionModel
+    from sola_torch.parallel import cp
+    from sola_torch.parallel.mesh import make_mesh
+    from sola_torch.train import loop
+    from sola_torch.train import state as state_lib
+    # one host: the loopback carries NCCL's bootstrap
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        t = torch.arange(8.0, device="cuda")
+        dist.all_reduce(t)
+        if not torch.equal(t, torch.arange(8.0, device="cuda")):
+            raise AssertionError(f"NCCL all_reduce of one rank: {t}")
+        q, k, v, mask = cp_inputs()
+        got = cp.cp_attention(q, k, v, mask, dist.group.WORLD)
+        want, _ = fa.fused_attention_lse(q, k, v, mask)
+        if not torch.equal(got, want):
+            raise AssertionError("cp attention over one rank differs from "
+                                 "the kernel")
+        del q, k, v, got, want
+        mesh = make_mesh(n_model=1)
+        cfg = SelectionConfig(use_pallas_attention=True, dropout_p=0.0,
+                              attn_dropout_p=0.0)
+        gen = torch.Generator().manual_seed(0)
+        batch = {"object_tokens": torch.randn(BATCH, 64, FRAMES, 256,
+                                              generator=gen),
+                 "track_mask": torch.arange(64)[None].expand(BATCH, 64) < 40,
+                 "frame_lengths": torch.full((BATCH,), FRAMES),
+                 "lang_tokens": torch.randn(BATCH, 96, 1024, generator=gen),
+                 "lang_mask": torch.arange(96)[None].expand(BATCH, 96) < 12,
+                 "pos_tokens": torch.randn(BATCH, 1, 1024, generator=gen),
+                 "labels": (torch.rand(BATCH, 64, generator=gen) > 0.7
+                            ).float()}
+        batch = {k: t.cuda() for k, t in batch.items()}
+        train_cfg = {"positive_weight": 1.5, "alignment_weight": 0.3,
+                     "temperature": 0.07}
+        finals = []
+        # cuDNN's default conv backward algorithms may sum in another order
+        # from one run to the next, so two equal steps differ in last bits
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for m in (mesh, None):
+                model = SelectionModel(cfg)
+                init_weights(model, 42)
+                model = model.cuda()
+                opt = state_lib.make_optimizer(model.parameters(), lr=5e-6)
+                loop.train_step(model, opt, batch, train_cfg,
+                                torch.Generator().manual_seed(0), m)
+                finals.append(model.state_dict())
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        if any(not torch.equal(finals[0][k], finals[1][k])
+               for k in finals[0]):
+            raise AssertionError("the mesh step at n_model 1 differs from "
+                                 "the plain step")
+        return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                "mesh": [mesh.n_data, mesh.n_model]}
+    finally:
+        dist.destroy_process_group()
+
+
+def max_weight_diff(a: str, b: str) -> float:
+    sa = torch.load(a, weights_only=True)
+    sb = torch.load(b, weights_only=True)
+    if sa.keys() != sb.keys():
+        raise AssertionError(f"checkpoint names differ: {a} {b}")
+    return max((sa[k].float() - sb[k].float()).abs().max().item()
+               for k in sa)
+
+
+def run_distributed(fa) -> dict:
+    """Phase 15."""
+    import yaml
+
+    from sola_torch import config as config_lib
+    from sola_torch.cli import eval as eval_cli
+    from sola_torch.cli import train as train_cli
+    from sola_torch.models.selection import SelectionConfig, SelectionModel
+    root = os.path.join(OUT_DIR, "distributed")
+    os.makedirs(root)
+    out = {"nccl_world1": run_nccl_world1(fa)}
+    log(f"  NCCL group of 1: all_reduce, cp attention equal to the kernel, "
+        f"a mesh step at n_model 1 equal to the plain step "
+        f"{out['nccl_world1']}")
+    gen = torch.Generator().manual_seed(15)
+    out["rank_kernels"] = check_rank_kernels(fa, gen)
+
+    dataset = selection_corpus(os.path.join(root, "data"), MESH_TRAIN_VIDEOS,
+                               MESH_VALID_VIDEOS, FRAMES, OBJECTS,
+                               DISTRACTORS, BATCH)
+    dataset["num_workers"] = 2
+    configs = config_lib.load_config("mevis/default")
+    configs["exp_name"] = "mesh"
+    configs["model"]["use_pallas_attention"] = True
+    configs["dataset"] = dataset
+    configs["results"] = {k: os.path.join(root, k) for k in (
+        "output_dir", "eval_output_dir", "test_output_dir")}
+    yaml_path = os.path.join(root, "mesh.yaml")
+    with open(yaml_path, "w") as f:
+        yaml.safe_dump(configs, f)
+
+    def train_argv(name, epochs, dropout=False):
+        argv = ["--config", yaml_path, "--device", "cuda", "--backend",
+                "gloo", "--train.n_model", str(MESH_N_MODEL),
+                "--train.n_epochs", str(epochs),
+                "--results.output_dir", os.path.join(root, name)]
+        if not dropout:
+            argv += ["--model.dropout_p", "0", "--model.attn_dropout_p", "0"]
+        return argv
+
+    def train_dir(name):
+        return os.path.join(root, name, "mesh", "mevis")
+
+    eval_argv = ["--config", yaml_path, "--device", "cuda",
+                 "--eval_weight_epoch", "2", "--dataset.valid.batch_size",
+                 "4", "--results.output_dir", os.path.join(root, "mesh2x2")]
+    spec = {"honest": train_argv("mesh2x2", 2),
+            "fault": train_argv("fault", 1),
+            "dropout": train_argv("dropout", 1, dropout=True),
+            "eval_sharded": eval_argv + [
+                "--backend", "gloo", "--results.eval_output_dir",
+                os.path.join(root, "eval_sharded")]}
+    with open(os.path.join(root, "mesh.json"), "w") as f:
+        json.dump(spec, f)
+
+    out["mesh_s"], ranks = launch_ranks("mesh", MESH_WORLD, root)
+    t0 = time.perf_counter()
+    train_cli.main(train_argv("single", 2))
+    torch.cuda.synchronize()
+    out["single_train_s"] = time.perf_counter() - t0
+    steps = MESH_TRAIN_VIDEOS * OBJECTS // BATCH * 2
+    valid_batches = MESH_VALID_VIDEOS * OBJECTS // BATCH * 2
+    want = {"fwd": 2 * (steps + valid_batches), "bwd": 2 * steps}
+    for r in ranks:
+        if (r["local_heads"] != SEL_HEADS // MESH_N_MODEL
+                or any(r["launches_by_site"][s] != want
+                       for s in ATTN_SITES)
+                or r["launches"]["flash_attn_fwd"] != 3 * want["fwd"]
+                or r["launches"]["flash_attn_bwd"] != 3 * want["bwd"]):
+            raise AssertionError(f"rank {r['rank']}: {r['local_heads']} "
+                                 f"heads, launches by site "
+                                 f"{r['launches_by_site']} (want {want} "
+                                 f"each), totals {r['launches']}")
+    mesh_log = parse_train_log(os.path.join(train_dir("mesh2x2"),
+                                            "log.txt"))
+    single_log = parse_train_log(os.path.join(train_dir("single"),
+                                              "log.txt"))
+    log_err = (float(np.abs(np.subtract(mesh_log[0], single_log[0])).max())
+               if len(mesh_log[0]) == len(single_log[0]) else float("inf"))
+    lr = float(configs["train"]["lr"])
+    weight_tol = MESH_STEP_LR * lr * steps
+    weight_err = max_weight_diff(
+        os.path.join(train_dir("mesh2x2"), "epoch_2.pth"),
+        os.path.join(train_dir("single"), "epoch_2.pth"))
+    if (mesh_log[2] != ["001", "002"] or mesh_log[1] != single_log[1]
+            or not log_err <= MESH_LOG_ATOL
+            or not weight_err <= weight_tol):
+        raise AssertionError(
+            f"mesh training against one process: log numbers within "
+            f"{log_err} (tol {MESH_LOG_ATOL}), counts {mesh_log[1]} vs "
+            f"{single_log[1]}, epochs {mesh_log[2]}, weights within "
+            f"{weight_err} (tol {weight_tol})")
+    cfg = SelectionConfig.from_dict(configs["model"])
+    for epoch in (1, 2):
+        SelectionModel(cfg).load_state_dict(torch.load(os.path.join(
+            train_dir("mesh2x2"), f"epoch_{epoch}.pth"), weights_only=True),
+            strict=True)
+    full = dict(SelectionModel(cfg).named_parameters())
+    moments = torch.load(os.path.join(train_dir("mesh2x2"),
+                                      "epoch_2.resume.pth"),
+                         weights_only=True)["optimizer"]["state"]
+    shapes = [p.shape for p in full.values()]
+    if len(moments) != len(shapes) or any(
+            e["exp_avg"].shape != shapes[int(i)]
+            for i, e in moments.items()):
+        raise AssertionError("the gathered AdamW moments do not have the "
+                             "full model's shapes")
+    fault_log = parse_train_log(os.path.join(train_dir("fault"), "log.txt"))
+    n1 = len(fault_log[0])
+    fault_err = float(np.abs(np.subtract(
+        fault_log[0], single_log[0][:n1])).max())
+    if fault_err <= MESH_LOG_ATOL and fault_log[1] == single_log[1][:4]:
+        raise AssertionError(f"the limits accept mesh training without "
+                             f"out_proj's sum: log within {fault_err}")
+    drop_log = parse_train_log(os.path.join(train_dir("dropout"),
+                                            "log.txt"))
+    reps = [torch.load(os.path.join(root, f"replicated_rank{r}.pt"),
+                       weights_only=True) for r in range(MESH_WORLD)]
+    if not np.isfinite(drop_log[0]).all() or any(
+            not torch.equal(rep[k], reps[0][k]) for rep in reps[1:]
+            for k in reps[0]):
+        raise AssertionError(f"mesh training with dropout: log "
+                             f"{drop_log[0]}, replicated parameters equal "
+                             f"on every rank: False")
+    out["mesh"] = {"ranks": ranks, "log": mesh_log[0],
+                   "confusion": mesh_log[1], "max_abs_log_err": log_err,
+                   "log_tol": MESH_LOG_ATOL,
+                   "max_abs_weight_err": weight_err,
+                   "weight_tol": weight_tol, "fault_max_abs_log_err":
+                   fault_err, "dropout_log": drop_log[0],
+                   "replicated_tensors": len(reps[0])}
+    log(f"  mesh training 2 x 2 (gloo, one card; train CLI, "
+        f"SelectionConfig() flash route, {steps} steps + {valid_batches} "
+        f"validation batches): {out['mesh_s']:.1f} s for the ranks' three "
+        f"runs, one process {out['single_train_s']:.1f} s; log within "
+        f"{log_err:.3g} (tol {MESH_LOG_ATOL}), TP/FP/FN/TN equal "
+        f"{mesh_log[1][-4:]}, weights within {weight_err:.3g} (tol "
+        f"{weight_tol:.3g}); launches a rank by site "
+        f"{ranks[0]['launches_by_site']}; out_proj's sum planted away: log "
+        f"off by {fault_err:.4g} (rejected); with dropout: log finite, "
+        f"{len(reps[0])} replicated tensors bit-equal on 4 ranks")
+
+    # cp attention and the sharded eval on 2 ranks, then one process
+    out["cp_eval_s"], cranks = launch_ranks("cp_eval", CP_WORLD, root)
+    q, k, v, mask = cp_inputs()
+    got = torch.load(os.path.join(root, "cp_out.pt")).cuda()
+    single, _ = fa.fused_attention_lse(q, k, v, mask)
+    ref = fa.attention_reference(q, k, v, mask)[0].float()
+    errs = {"plain": out_errors(got, ref, torch.bfloat16),
+            "kernel": out_errors(got, single.float(), torch.bfloat16)}
+    if (any(not (e[0] <= e[1] and e[2] <= e[3]) for e in errs.values())
+            or cranks[1]["valid_keys"][0] != 0
+            or any(r["cp_launches"] != 1 for r in cranks)):
+        raise AssertionError(f"cp attention over 2 ranks: errors {errs}, "
+                             f"rank 1's valid keys "
+                             f"{cranks[1]['valid_keys']}, launches "
+                             f"{[r['cp_launches'] for r in cranks]}")
+    del q, k, v, mask, got, single, ref
+    eval_cli.main(eval_argv + ["--results.eval_output_dir",
+                               os.path.join(root, "eval_single")])
+    evals = {}
+    for name in ("eval_single", "eval_sharded"):
+        d = os.path.join(root, name, "mesh", "mevis", "pred_threshold_05",
+                         "epoch_2")
+        evals[name] = {}
+        for key, f in (("metrics", "valid_u_metrics_2epoch.json"),
+                       ("jf", "valid_u_JF_metrics_2epoch.json")):
+            with open(os.path.join(d, f)) as fh:
+                evals[name][key] = json.load(fh)
+    bad, readings = eval_differences(evals["eval_sharded"],
+                                     evals["eval_single"])
+    counts = [evals[n]["metrics"][c] for n in evals
+              for c in ("tp", "fp", "fn", "tn")]
+    if bad or counts[:4] != counts[4:] or min(
+            r["eval_launches"] for r in cranks) == 0:
+        raise AssertionError(f"sharded eval against one process: {bad}, "
+                             f"counts {counts}")
+    out["cp"] = {"ranks": cranks, "errors": {
+        k: dict(zip(("max_abs_err", "max_abs_tol", "rms_err", "rms_tol"), e))
+        for k, e in errs.items()}}
+    out["eval"] = {"equal": evals["eval_sharded"] == evals["eval_single"],
+                   "readings": readings, "confusion": counts[:4],
+                   "launches_by_rank": [r["eval_launches"] for r in cranks]}
+    log(f"  cp attention over 2 gloo ranks on one card (14368 keys each; "
+        f"rank 1 holds no valid key of entry 0): against the plain version "
+        f"max {errs['plain'][0]:.3g} (tol {errs['plain'][1]:.3g}), against "
+        f"the kernel over all keys max {errs['kernel'][0]:.3g}; flash "
+        f"launches a rank {[r['cp_launches'] for r in cranks]}; each rank's "
+        f"kernel alone {[round(r['cp_kernel_ms'], 4) for r in cranks]} ms "
+        f"(plain {[round(r['cp_kernel']['plain_ms'], 3) for r in cranks]}, "
+        f"SDPA {[round(r['cp_kernel']['library_ms'], 4) for r in cranks]}, "
+        f"bound {[round(r['cp_kernel']['bound_ms'], 4) for r in cranks]}); "
+        f"the combine (gloo staging through the host on a shared card, not "
+        f"a scaling figure) {[round(r['cp_combine_ms'], 2) for r in cranks]}"
+        f" ms")
+    log(f"  eval CLI over 2 ranks against one process: JSONs equal "
+        f"{out['eval']['equal']}, within the eval limits, TP/FP/FN/TN "
+        f"{counts[:4]}; flash launches by rank "
+        f"{out['eval']['launches_by_rank']}; 2-rank launch "
+        f"{out['cp_eval_s']:.1f} s")
+    drop_bulk(root)
+    for f in os.listdir(root):
+        if f.endswith(".pt"):
+            os.remove(os.path.join(root, f))
+    return out
+
+
 def main() -> None:
+    if len(sys.argv) == 4 and sys.argv[1] == "--rank":  # a phase-15 rank
+        run_rank(sys.argv[2], sys.argv[3])
+        return
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
     from sola_torch.ops import deformable_interp as di
@@ -3377,6 +3982,11 @@ def main() -> None:
     packed_paths = run_packed_paths(fa)
     log("phase 14: packed paths small reference")
     packed_small = run_packed_small_reference(fa)
+    log("phase 15: distributed: an NCCL group of 1; gloo ranks sharing the "
+        "card: cp attention over 2 key shards, the train CLI on a 2 x 2 "
+        "(data, model) mesh at SelectionConfig(), the eval CLI over 2 "
+        "ranks")
+    distributed = run_distributed(fa)
 
     head = kernel["rows"][0]  # memory cross-attention: most of the time
     # the main path's shape: 3 expressions padded to 4, fp32 (CLI default)
@@ -3397,7 +4007,12 @@ def main() -> None:
                            **{f"{path}_{run}": packed_paths[path][run][
                                "launches"]
                               for path in ("grid", "gdino", "gt")
-                              for run in ("seq", "pack", "seq8")}},
+                              for run in ("seq", "pack", "seq8")},
+                           **{f"cp_rank{r['rank']}": r["cp_launches"]
+                              for r in distributed["cp"]["ranks"]},
+                           **{f"train_mesh_rank{r['rank']}": r["launches"][
+                               "flash_attn_fwd"]
+                              for r in distributed["mesh"]["ranks"]}},
         "ms_deform_attn_fwd": {
             "tokens_grid": main_path["deform_launches"],
             "gdino": gdino_path["launches"]["ms_deform_attn_fwd"]}}
@@ -3423,7 +4038,9 @@ def main() -> None:
         "source": "sola_torch/csrc/flash_attn_bwd.cu",
         "replaces": "sola_tpu/ops/flash_attention.py:117 and "
                     "sola_tpu/ops/flash_attention.py:159",
-        "launches": training["launches"]["flash_attn_bwd"],
+        "launches": training["launches"]["flash_attn_bwd"] + sum(
+            r["launches"]["flash_attn_bwd"]
+            for r in distributed["mesh"]["ranks"]),
         "max_abs_err": max(r[f"{g}_{t}"]["max_abs_err"]
                            for r in training_kernels["rows"]
                            for g in ("dq", "dk", "dv")
@@ -3434,7 +4051,10 @@ def main() -> None:
         **{k: thead["bwd"][k] for k in ("plain_ms", "bound_ms", "bound_by",
                                         "library_ms", "library_by_call_ms")},
         "at": f"{thead['shape']}, dropout {SEL_RATE}",
-        "launches_by_path": {"train": training["launches"]["flash_attn_bwd"]},
+        "launches_by_path": {
+            "train": training["launches"]["flash_attn_bwd"],
+            **{f"train_mesh_rank{r['rank']}": r["launches"]["flash_attn_bwd"]
+               for r in distributed["mesh"]["ranks"]}},
         "shapes": [{"shape": r["shape"], "plan": r["plan"], **r["bwd"]}
                    for r in training_kernels["rows"]]})
     kernels.append({
@@ -3462,6 +4082,7 @@ def main() -> None:
                    "grid_small_reference": grid_small,
                    "packed_paths": packed_paths,
                    "packed_small_reference": packed_small,
+                   "distributed": distributed,
                    "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items()

@@ -6,7 +6,9 @@ Counterpart of ``sola_tpu/cli/eval.py``: loads a reference-named
 ``epoch_N.pth`` (or the JAX package's ``epoch_N.npz`` export) from the
 train output dir, then runs the Evaluator on ``--device`` (CUDA by
 default; without CUDA the CLI raises unless ``--device cpu`` is given).
-Unknown ``--key value`` flags fold into the config.
+Unknown ``--key value`` flags fold into the config. Under torchrun (or
+its environment variables) each process scores its share of the valid
+batches and rank 0 writes the JSONs; ``--backend`` as in ``cli.train``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import argparse
 import os
 
 from sola_torch import config as config_lib
-from sola_torch.cli.train import set_seed
+from sola_torch.cli.train import init_distributed, set_seed
 
 
 def get_configs(argv=None) -> tuple:
@@ -59,21 +61,26 @@ def load_weights(configs: dict, device):
 def main(argv=None) -> None:
     from sola_torch.device import resolve_device
     from sola_torch.eval.evaluator import Evaluator
-    configs, device = get_configs(argv)
-    device = resolve_device(device)
+    from sola_torch.parallel import distributed
+    configs, device = get_configs(init_distributed(argv))
+    device = resolve_device(distributed.rank_device(device))
     set_seed(42)
     model = load_weights(configs, device)
     eval_dir = config_lib.eval_output_dir(
         configs, configs["eval"]["pred_threshold"],
         configs["eval_weight_epoch"])
     os.makedirs(eval_dir, exist_ok=True)
-    print(f"EVAL OUTPUTS WILL BE SAVED IN {eval_dir}")
+    rank0 = distributed.process_index() == 0
+    if rank0:
+        print(f"EVAL OUTPUTS WILL BE SAVED IN {eval_dir}")
     evaluator = Evaluator(model, configs,
                           eval_weight_epoch=configs["eval_weight_epoch"],
                           eval_output_dir=eval_dir)
     metrics = evaluator.evaluate()
-    print(f"MEAN J: {metrics['mean_J']:.4f} MEAN F: {metrics['mean_F']:.4f} "
-          f"MEAN JF: {metrics['mean_JF']:.4f}")
+    if rank0:
+        print(f"MEAN J: {metrics['mean_J']:.4f} "
+              f"MEAN F: {metrics['mean_F']:.4f} "
+              f"MEAN JF: {metrics['mean_JF']:.4f}")
 
 
 if __name__ == "__main__":

@@ -5,6 +5,17 @@ Counterpart of ``sola_tpu/cli/train.py`` (reference surface: train.py:294-297
 dotted keys (``--train.lr 1e-5``) reach nested entries. ``--device`` is the
 torch device (CUDA by default; without CUDA the CLI raises unless
 ``--device cpu`` is given).
+
+Several processes train one model on a (data, model) mesh when the
+environment names a group of more than one (``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``, as torchrun sets them)::
+
+    torchrun --nproc_per_node 4 -m sola_torch.cli.train --config ... \
+        --train.n_model 2 --device cpu
+
+``--backend`` picks the process group's backend: NCCL by default where
+each rank has a card of its own, gloo on the CPU or for ranks that share
+one card.
 """
 
 from __future__ import annotations
@@ -37,11 +48,27 @@ def get_configs(argv=None) -> tuple:
             args.resume, args.device)
 
 
+def init_distributed(argv=None) -> list:
+    """Join the process group the environment names (``--backend``: nccl
+    or gloo; by default ``distributed.default_backend`` of ``--device``);
+    returns the arguments without ``--backend``."""
+    from sola_torch.parallel import distributed
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("--backend", type=str, default=None)
+    args, rest = parser.parse_known_args(argv)
+    device = argparse.ArgumentParser(add_help=False)
+    device.add_argument("--device", type=str, default="cuda")
+    distributed.initialize(backend=args.backend,
+                           device=device.parse_known_args(rest)[0].device)
+    return rest
+
+
 def main(argv=None) -> None:
     from sola_torch.device import resolve_device
+    from sola_torch.parallel.distributed import rank_device
     from sola_torch.train.loop import train
-    configs, resume, device = get_configs(argv)
-    device = resolve_device(device)
+    configs, resume, device = get_configs(init_distributed(argv))
+    device = resolve_device(rank_device(device))
     set_seed(42)
     train(configs, resume=resume, device=device)
 

@@ -13,6 +13,14 @@ J&F runs on the model's device over (T, H, W) uint8 masklets
 (``mask_ops.compute_JF``); RLE decode runs on a host thread one expression
 ahead, so it overlaps the device.
 
+In a process group each process scores its ``shard_for_host`` share of the
+valid batches (batch i on process i % n); the confusion counts go through
+``all_sum``, the per-batch records are gathered to rank 0 in batch order,
+and rank 0 computes J&F and writes the JSONs, so the result equals one
+process's. (``sola_tpu``'s evaluator runs the whole split in every process
+and then sums the counts, which counts each track n times; the port follows
+the JAX package's multi-process rehearsal instead.)
+
 INTENTIONAL DIVERGENCE (DIVERGENCES.md #1, kept from the JAX package): the
 reference computes its eval "loss" as BCE-with-logits over *sigmoided*
 scores (evaluator.py:107), unlike training (train.py:100-104). Here eval
@@ -29,11 +37,14 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sola_torch.core import mask_ops
 from sola_torch.data.dataset import get_loader_dict
 from sola_torch.models.selection import SelectionModel
 from sola_torch.models.text import build_text_encoder
+from sola_torch.parallel.distributed import (all_sum, process_count,
+                                             process_index)
 from sola_torch.train.loop import eval_step, prepare_batch
 
 
@@ -59,35 +70,35 @@ class Evaluator:
 
     # ------------------------------------------------------------------
     def evaluate(self) -> dict:
-        m = {
-            "total_loss": [], "bce_loss": [], "alignment_loss": [],
-            "tp": 0, "fp": 0, "tn": 0, "fn": 0,
-            "tp_score": [], "fp_score": [], "tn_score": [], "fn_score": [],
-        }
-        self.pred_dict = {}
-        for raw in self.loader_dict["valid"]:
+        """Scores this process's share of the valid batches; returns the
+        metrics (every process gets rank 0's)."""
+        rank, world = process_index(), process_count()
+        counts = {"tp": 0, "fp": 0, "tn": 0, "fn": 0}
+        records = []  # (batch index, its losses, scores and predictions)
+        for index, raw in enumerate(self.loader_dict["valid"]):
+            if index % world != rank:  # shard_for_host's assignment
+                continue
             batch = prepare_batch(raw, self.text_encoder, self.train_cfg,
                                   self.device)
             out = eval_step(self.model, batch, self.train_cfg,
                             self.pred_threshold)
-            m["total_loss"].append(float(out["total"]))
-            m["bce_loss"].append(float(out["bce"]))
-            m["alignment_loss"].append(float(out["alignment"]))
-            for k in ("tp", "fp", "fn", "tn"):
-                m[k] += int(out[k])
+            for k in counts:
+                counts[k] += int(out[k])
             preds = out["pred"].cpu().numpy()
             scores = out["pred_score"].cpu().numpy()
             labels = batch["labels"].cpu().numpy()
             track_mask = np.asarray(raw["track_mask"])
+            rec = {"total_loss": float(out["total"]),
+                   "bce_loss": float(out["bce"]),
+                   "alignment_loss": float(out["alignment"]), "pred": []}
             for k, p, l in (("tp_score", 1, 1), ("fp_score", 1, 0),
                             ("tn_score", 0, 0), ("fn_score", 0, 1)):
                 sel = (preds == p) & (labels == l) & track_mask
-                m[k] += scores[sel].tolist()
+                rec[k] = scores[sel].tolist()
             # per-sample pred_dict entries (evaluator.py:135-147)
             for i, video_id in enumerate(raw["video_id"]):
                 n = int(raw["n_tracks"][i])
-                expression_id = raw["expression_id"][i]
-                self.pred_dict.setdefault(video_id, {})[expression_id] = {
+                rec["pred"].append((video_id, raw["expression_id"][i], {
                     "expression": raw["expression"][i],
                     "anno_ids": raw["anno_ids"][i],
                     "pred": preds[i, :n],
@@ -95,14 +106,35 @@ class Evaluator:
                     "root_type": raw["root_type"][i],
                     "prompt_type": raw["prompt_type"][i],
                     "sam2_anno_id": raw["sam2_anno_id"][i],
-                }
+                }))
+            records.append((index, rec))
+        summed = all_sum(counts)
+        counts = {k: int(summed[k]) for k in counts}
+        if world > 1:
+            shards = [None] * world
+            dist.all_gather_object(shards, records)
+            records = sorted((r for shard in shards for r in shard),
+                             key=lambda r: r[0])
+            if rank != 0:
+                result = [None]
+                dist.broadcast_object_list(result, src=0)
+                self.metrics = result[0]
+                return self.metrics
 
+        m = {"total_loss": [], "bce_loss": [], "alignment_loss": [],
+             **counts,
+             "tp_score": [], "fp_score": [], "tn_score": [], "fn_score": []}
+        self.pred_dict = {}
+        for _, rec in records:
+            for k in ("total_loss", "bce_loss", "alignment_loss"):
+                m[k].append(rec[k])
+            for k in ("tp_score", "fp_score", "tn_score", "fn_score"):
+                m[k] += rec[k]
+            for video_id, expression_id, entry in rec["pred"]:
+                self.pred_dict.setdefault(video_id, {})[expression_id] = entry
         m["total_loss"] = float(np.mean(m["total_loss"]))
         m["bce_loss"] = float(np.mean(m["bce_loss"]))
         m["alignment_loss"] = float(np.mean(m["alignment_loss"]))
-        # one process: the confusion counts are final. The JAX package sums
-        # them over processes here (parallel.distributed.all_sum); that
-        # comes with the distributed port
         denom = m["tp"] + m["tn"] + m["fp"] + m["fn"]
         m["accuracy"] = (m["tp"] + m["tn"]) / max(denom, 1)
         m["precision"] = m["tp"] / (m["tp"] + m["fp"] + 1e-6)
@@ -123,6 +155,8 @@ class Evaluator:
             f"{self.data_type}_metrics_{self.eval_weight_epoch}epoch.json")
         with open(path, "w") as f:
             json.dump(self.metrics, f, indent=4)
+        if world > 1:
+            dist.broadcast_object_list([self.metrics], src=0)
         return self.metrics
 
     # ------------------------------------------------------------------

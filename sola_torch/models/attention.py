@@ -10,6 +10,12 @@ einsum path; ``use_pallas=True`` goes through ``fused_attention``, the
 hand-written CUDA forward and backward kernels (their plain versions on
 CPU tensors), with the probabilities' dropout inside the kernels, seeded
 once per call from the forward's explicit generator.
+
+With a model ``group`` (``parallel/tp.py``) the layer holds this rank's
+share: q/k/v project to ``num_heads / group size`` local heads, the
+attention runs over those heads by either route, and ``out_proj``'s
+partial products are summed over the group before its bias. Without one
+the layer is the single-device layer, bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from torch import nn
 
 from sola_torch.models.layers import DropoutRng, standardize_dense_kernel
 from sola_torch.ops.flash_attention import fused_attention
+from sola_torch.parallel import tp
 
 NEG_INF = -1e30
 
@@ -37,27 +44,43 @@ class WSDense(nn.Linear):
 class MultiHeadAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int = 8,
                  dropout_p: float = 0.1, use_pallas: bool = False,
-                 weight_standardization: bool = False):
+                 weight_standardization: bool = False, group=None):
         super().__init__()
+        n = tp.group_size(group)
+        if num_heads % n:
+            raise ValueError(f"a model group of {n} does not divide "
+                             f"{num_heads} heads")
+        if weight_standardization and n > 1:
+            # out_proj's per-row statistics would span the split inputs
+            raise ValueError("weight standardization is not split")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.dropout_p = dropout_p
         self.use_pallas = use_pallas
+        self.group = group if n > 1 else None
+        local = embed_dim // n
         dense = WSDense if weight_standardization else nn.Linear
-        self.q_proj = dense(embed_dim, embed_dim)
-        self.k_proj = dense(embed_dim, embed_dim)
-        self.v_proj = dense(embed_dim, embed_dim)
-        self.out_proj = dense(embed_dim, embed_dim)
+        self.q_proj = dense(embed_dim, local)
+        self.k_proj = dense(embed_dim, local)
+        self.v_proj = dense(embed_dim, local)
+        self.out_proj = dense(local, embed_dim)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 key_mask: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
         """q: (B, Lq, D); k, v: (B, Lk, D); key_mask: (B, Lk) bool or None;
         ``rng`` None is the deterministic (eval) forward."""
-        d, h = self.embed_dim, self.num_heads
-        hd = d // h
+        hd = self.embed_dim // self.num_heads
+        h = self.q_proj.out_features // hd  # this rank's heads
         b, lq, _ = q.shape
         lk = k.shape[1]
+        if self.group is not None:
+            # one copy per distinct tensor: q and k are often one tensor
+            copies: dict = {}
+            for t in (q, k, v):
+                if id(t) not in copies:
+                    copies[id(t)] = tp.copy_to_model(t, self.group)
+            q, k, v = (copies[id(t)] for t in (q, k, v))
         qh = self.q_proj(q).reshape(b, lq, h, hd).transpose(1, 2)
         kh = self.k_proj(k).reshape(b, lk, h, hd).transpose(1, 2)
         vh = self.v_proj(v).reshape(b, lk, h, hd).transpose(1, 2)
@@ -81,4 +104,8 @@ class MultiHeadAttention(nn.Module):
                 probs = rng.dropout(probs, self.dropout_p)
             out = torch.einsum("bhqk,bhkd->bhqd", probs.float(),
                                vh.float()).to(qh.dtype)
-        return self.out_proj(out.transpose(1, 2).reshape(b, lq, d))
+        out = out.transpose(1, 2).reshape(b, lq, h * hd)
+        if self.group is None:
+            return self.out_proj(out)
+        partial = nn.functional.linear(out, self.out_proj.weight)
+        return tp.reduce_from_model(partial, self.group) + self.out_proj.bias

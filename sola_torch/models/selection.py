@@ -18,6 +18,12 @@ parameter names follow the reference checkpoint (``epoch_N.pth``,
 ``sola_tpu/models/convert.py``), so one loads with a strict
 ``load_state_dict``. Training randomness comes from an explicit
 ``torch.Generator`` passed to ``forward``.
+
+``SelectionModel(cfg, group)`` with a model group (``parallel/tp.py``)
+holds this rank's shard: its attention layers compute ``num_heads / group
+size`` heads, and each motion conv computes its share of the output
+channels, gathered over the group before the GroupNorm that follows it.
+A shard loads ``tp.shard_state_dict`` of a full state dict.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from sola_torch.models.attention import MultiHeadAttention
 from sola_torch.models.layers import (DropoutRng, MaskedGroupNorm, WSConv1d,
                                       downsampled_length, leaky_relu,
                                       prefix_mask)
+from sola_torch.parallel import tp
 
 # indices of the reference's nn.Sequential motion encoder: conv, GroupNorm,
 # LeakyReLU, Dropout per block; the last block is the conv alone
@@ -102,13 +109,13 @@ def masked_softmax(logits: torch.Tensor, mask: Optional[torch.Tensor],
 class AlignmentLayer(nn.Module):
     """One object-language alignment layer (module/module.py:8-52)."""
 
-    def __init__(self, cfg: SelectionConfig):
+    def __init__(self, cfg: SelectionConfig, group=None):
         super().__init__()
         d = cfg.lang_token_dim
 
         def mha():
             return MultiHeadAttention(d, cfg.num_heads, cfg.attn_dropout_p,
-                                      cfg.use_pallas_attention)
+                                      cfg.use_pallas_attention, group=group)
 
         self.obj_attn = mha()
         self.motion_attn = mha()
@@ -160,22 +167,27 @@ class AlignmentLayer(nn.Module):
 class SelectionModel(nn.Module):
     """LanguageAlignedTrackSelectionModule (module/module.py:54)."""
 
-    def __init__(self, cfg: SelectionConfig):
+    def __init__(self, cfg: SelectionConfig, group=None):
         super().__init__()
         self.cfg = cfg
+        n = tp.group_size(group)
+        self.group = group if n > 1 else None
         d = cfg.lang_token_dim
         specs = cfg.conv_specs()
         # keyed by the reference Sequential's indices; its LeakyReLU and
         # Dropout slots carry no weights and are applied in encode_motion
         encoder = {}
         for i, (cin, cout, k, s, p) in enumerate(specs):
-            encoder[str(CONV_SEQ_IDX[i])] = WSConv1d(cin, cout, k, s, p)
+            if cout % n:
+                raise ValueError(f"a model group of {n} does not divide "
+                                 f"conv_{i}'s {cout} channels")
+            encoder[str(CONV_SEQ_IDX[i])] = WSConv1d(cin, cout // n, k, s, p)
             if i < len(NORM_SEQ_IDX):
                 encoder[str(NORM_SEQ_IDX[i])] = MaskedGroupNorm(cfg.n_groups,
                                                                 cout)
         self.short_motion_encoder = nn.ModuleDict(encoder)
         self.object_lang_align_layers = nn.ModuleList(
-            AlignmentLayer(cfg) for _ in range(cfg.n_layers))
+            AlignmentLayer(cfg, self.group) for _ in range(cfg.n_layers))
         self.negative_token = nn.Embedding(cfg.n_negative, d)
         # fixed random-Fourier buffer (module/module.py:104)
         self.register_buffer("positional_encoding_gaussian_matrix",
@@ -206,7 +218,9 @@ class SelectionModel(nn.Module):
                 # zero the padded tail so boundary windows see the zeros
                 # torch's conv padding would
                 x = x * prefix_mask(lengths, x.shape[1]).to(x.dtype)[..., None]
-            x = self.short_motion_encoder[str(CONV_SEQ_IDX[i])](x)
+            conv = self.short_motion_encoder[str(CONV_SEQ_IDX[i])]
+            x = tp.gather_from_model(conv(tp.copy_to_model(x, self.group)),
+                                     self.group)
             if lengths is not None:
                 lengths = downsampled_length(lengths, s, k, p)
             if i < len(specs) - 1:

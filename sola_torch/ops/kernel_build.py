@@ -7,11 +7,20 @@ no PyTorch header is compiled and a build takes seconds. ``build_all``
 starts one ``nvcc`` per library at once, for callers that want every kernel
 ready up front. A failed build raises: no caller falls back to a plain
 version on a CUDA tensor.
+
+Several processes may ask for one library at once (the ranks of a process
+group started together on an unbuilt tree): a build holds an exclusive
+lock on ``lib<name>.lock`` in the build dir from its check for the library
+to the rename that publishes it, and ``nvcc`` writes a file of its own
+that is renamed into place whole, so a process either builds or waits and
+then loads the finished library. The operating system drops the lock with
+its process, so a killed build leaves no stale lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -61,28 +70,46 @@ def _so_path(name: str) -> tuple:
 
 def _start(name: str):
     """Start nvcc for ``name`` unless its library is built: returns
-    (so_path, tmp_path, Popen, start time) or (so_path, None, None, 0)."""
+    (so_path, tmp_path, Popen, start time, lock) or (so_path, None, None,
+    0, None); the lock (an open file) is held until ``_complete``."""
     paths, so_path = _so_path(name)
-    if os.path.exists(so_path):
-        return so_path, None, None, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
+    lock = open(os.path.join(BUILD_DIR, f"lib{name}.lock"), "w")
+    fcntl.flock(lock, fcntl.LOCK_EX)  # waits for another process's build
+    if os.path.exists(so_path):
+        lock.close()
+        return so_path, None, None, 0.0, None
     tmp = f"{so_path}.tmp.{os.getpid()}"
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return so_path, tmp, proc, time.perf_counter()
+    try:
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except BaseException:
+        lock.close()
+        raise
+    return so_path, tmp, proc, time.perf_counter(), lock
 
 
-def _finish(name: str, job) -> ctypes.CDLL:
-    so_path, tmp, proc, t0 = job
-    seconds, log = 0.0, ""
-    if proc is not None:
+def _complete(name: str, job) -> tuple:
+    """Wait for ``job``'s nvcc, publish its library with an atomic rename
+    and drop the lock: (so_path, seconds, nvcc's output)."""
+    so_path, tmp, proc, t0, lock = job
+    if proc is None:
+        return so_path, 0.0, ""
+    try:
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed building {name} ({proc.returncode}):\n{log}")
         os.replace(tmp, so_path)
+    finally:
+        lock.close()
+    return so_path, seconds, log
+
+
+def _finish(name: str, job) -> ctypes.CDLL:
+    so_path, seconds, log = _complete(name, job)
     lib = ctypes.CDLL(so_path)
     build_info[name] = {"seconds": seconds, "log": log}
     _libs[name] = lib

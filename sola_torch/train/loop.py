@@ -14,9 +14,21 @@ the model's attention, the kernels' counter hash) draws from one
 shuffle is seeded ``seed + N`` however many epochs the process ran before,
 so a run resumed from epoch N replays what the uninterrupted run did.
 ``train.steps_per_dispatch`` is accepted and its steps run one by one (the
-JAX package's scan gives the same numbers). Training runs on one device, as
-the JAX package does when it sees one; its device mesh (``train.n_model``
-across several) is not ported.
+JAX package's scan gives the same numbers).
+
+In a process group of several ranks (``parallel/distributed.initialize``)
+``train`` runs on a (data, model) mesh of processes, the counterpart of
+``make_mesh_context`` (``train.n_model`` ranks split the wide layers,
+``parallel/tp.py``): every rank builds the same padded global batch and
+keeps its data index's rows (``mesh.shard_batch``), losses divide by the
+global batch's valid tracks, gradients are summed over the data group, the
+clip takes the global norm, validation losses and counts are summed over
+the data group, and rank 0 alone writes ``log.txt`` and the checkpoints
+(gathered into single-device names). Each split keeps one token cache and
+each rank takes its rows from it. A rank's dropout generator
+(``epoch_generator``) adds its data index to the seed: the ranks of a
+model group draw alike, so their replicated activations stay equal, and
+data ranks draw apart.
 """
 
 from __future__ import annotations
@@ -35,6 +47,10 @@ from sola_torch.device import resolve_device
 from sola_torch.models.selection import (SelectionConfig, SelectionModel,
                                          init_weights)
 from sola_torch.models.text import CachingTextEncoder, build_text_encoder
+from sola_torch.parallel import tp
+from sola_torch.parallel.distributed import process_count, rank_device
+from sola_torch.parallel.mesh import (make_mesh, reduce_sum, shard_batch,
+                                      sum_gradients)
 from sola_torch.train import loss as loss_lib
 from sola_torch.train import state as state_lib
 from sola_torch.train.schedule import ReduceLROnPlateau
@@ -87,9 +103,10 @@ def _forward(model: SelectionModel, batch: dict,
 
 
 def _losses(model: SelectionModel, batch: dict, train_cfg: dict,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None, group=None):
     """(score logits, loss, parts) of one batch; a training forward when
-    ``generator`` is given."""
+    ``generator`` is given; means over a data-parallel ``group``'s valid
+    tracks."""
     score_logits, score_tokens = _forward(model, batch, generator)
     loss, parts = loss_lib.total_loss(
         score_logits, score_tokens, batch["labels"], batch["pos_tokens"],
@@ -97,20 +114,24 @@ def _losses(model: SelectionModel, batch: dict, train_cfg: dict,
         temperature=float(train_cfg["temperature"]),
         positive_weight=float(train_cfg["positive_weight"]),
         alignment_weight=float(train_cfg["alignment_weight"]),
-        track_mask=batch["track_mask"])
+        track_mask=batch["track_mask"], group=group)
     return score_logits, loss, parts
 
 
 def train_step(model: SelectionModel, optimizer: state_lib.Optimizer,
                batch: dict, train_cfg: dict,
-               generator: torch.Generator) -> dict:
+               generator: torch.Generator, mesh=None) -> dict:
     """One optimizer step: forward with dropout, ``total_loss``, backward,
     clip, AdamW. Returns the loss parts and the gradient norm as device
-    scalars (no host sync)."""
+    scalars (no host sync). On a ``mesh`` the parts are this rank's shares
+    of the global batch's, and the gradients are summed over the data
+    group before the clip."""
+    data_group = mesh.data_group if mesh is not None else None
     model.train()
     optimizer.zero_grad()
-    _, loss, parts = _losses(model, batch, train_cfg, generator)
+    _, loss, parts = _losses(model, batch, train_cfg, generator, data_group)
     loss.backward()
+    sum_gradients(optimizer.params, data_group)
     norm = optimizer.step()
     return {**{k: v.detach() for k, v in parts.items()},
             "total_grad_norm": norm}
@@ -118,16 +139,19 @@ def train_step(model: SelectionModel, optimizer: state_lib.Optimizer,
 
 @torch.no_grad()
 def eval_step(model: SelectionModel, batch: dict, train_cfg: dict,
-              pred_threshold: float) -> dict:
+              pred_threshold: float, group=None) -> dict:
     """Scores and predictions, and for a batch with labels the loss parts
-    and the confusion counts over valid tracks (device tensors)."""
+    and the confusion counts over valid tracks (device tensors); with a
+    data-parallel ``group`` the parts are this rank's shares of the
+    group's."""
     model.eval()
     labels = batch.get("labels")
     if labels is None:
         score_logits, _ = _forward(model, batch)
         out = {}
     else:
-        score_logits, _, parts = _losses(model, batch, train_cfg)
+        score_logits, _, parts = _losses(model, batch, train_cfg,
+                                         group=group)
         out = dict(parts)
     scores = torch.sigmoid(score_logits)
     preds = (scores > pred_threshold).float()
@@ -142,15 +166,31 @@ def eval_step(model: SelectionModel, batch: dict, train_cfg: dict,
 
 
 def build_model(cfg: SelectionConfig, device, seed: int = 42,
-                init_weights_path: Optional[str] = None) -> SelectionModel:
+                init_weights_path: Optional[str] = None,
+                group=None) -> SelectionModel:
     """A SelectionModel on ``device``: seeded random weights, or a
-    reference-format checkpoint (``.pth`` or ``.npz``)."""
+    reference-format checkpoint (``.pth`` or ``.npz``); with a model
+    ``group``, this rank's shard of those weights."""
     model = SelectionModel(cfg)
     if init_weights_path:
         model.load_state_dict(state_lib.load_torch_weights(init_weights_path))
     else:
         init_weights(model, seed)
+    if tp.group_size(group) > 1:
+        full = model.state_dict()
+        model = SelectionModel(cfg, group)
+        model.load_state_dict(tp.shard_state_dict(
+            full, tp.group_size(group), tp.group_rank(group)))
     return model.to(device)
+
+
+def epoch_generator(epoch: int, mesh=None) -> torch.Generator:
+    """Epoch ``epoch``'s dropout generator: seeded ``42 + epoch``, plus
+    2^16 times the data index on a mesh (the CPU generator keeps 32 bits
+    of a seed), so the ranks of a model group draw alike and data ranks
+    draw apart."""
+    data_index = mesh.data_index if mesh is not None else 0
+    return torch.Generator().manual_seed(42 + epoch + (data_index << 16))
 
 
 def train(configs: dict, max_steps_per_epoch: Optional[int] = None,
@@ -160,14 +200,26 @@ def train(configs: dict, max_steps_per_epoch: Optional[int] = None,
     it raises without CUDA unless ``device="cpu"``).
 
     ``resume=True`` restores the newest ``epoch_N`` checkpoint of the output
-    dir (weights, optimizer, schedule) and continues. Returns the model."""
-    device = resolve_device(device)
+    dir (weights, optimizer, schedule) and continues. Returns the model
+    (on a mesh, this rank's shard). In a process group every rank calls
+    it, and ``device="cuda"`` is the rank's own card."""
+    device = resolve_device(rank_device(device))
     configs = finalize_train_configs(configs)
     out_dir = configs["results"]["output_dir"]
     train_cfg = configs["train"]
+    mesh = None
+    if process_count() > 1:
+        mesh = make_mesh(n_model=int(train_cfg.get("n_model", 1)))
+        if mesh.rank != 0:
+            log_fn = lambda *a: None  # noqa: E731
+        log_fn(f"mesh training over ({mesh.n_data}, {mesh.n_model}) "
+               f"(data, model) processes")
+    model_group = mesh.model_group if mesh is not None else None
+    data_group = mesh.data_group if mesh is not None else None
     cfg = SelectionConfig.from_dict(configs["model"])
     init_path = train_cfg.get("init_weights")
-    model = build_model(cfg, device, init_weights_path=init_path)
+    model = build_model(cfg, device, init_weights_path=init_path,
+                        group=model_group)
     if init_path:
         log_fn(f"initialized weights from {init_path}")
     text_encoder = text_encoder or build_text_encoder(configs["model"],
@@ -175,9 +227,12 @@ def train(configs: dict, max_steps_per_epoch: Optional[int] = None,
     if not isinstance(text_encoder, CachingTextEncoder):
         text_encoder = CachingTextEncoder(text_encoder)
 
+    dims = tp.split_dims(dict(model.named_parameters()))
     optimizer = state_lib.make_optimizer(
         model.parameters(), lr=float(train_cfg["lr"]),
-        grad_clip_norm=float(train_cfg.get("grad_clip_norm", 0.0)))
+        grad_clip_norm=float(train_cfg.get("grad_clip_norm", 0.0)),
+        split=[dims[n] is not None for n, _ in model.named_parameters()],
+        group=model_group)
     schedule = ReduceLROnPlateau(
         lr=float(train_cfg["lr"]),
         factor=float(train_cfg.get("lr_factor", 0.5)),
@@ -187,7 +242,7 @@ def train(configs: dict, max_steps_per_epoch: Optional[int] = None,
         latest = state_lib.latest_checkpoint_epoch(out_dir)
         if latest is not None:
             start_epoch, step, sched_state = state_lib.restore_checkpoint(
-                out_dir, latest, model, optimizer)
+                out_dir, latest, model, optimizer, mesh)
             if sched_state:
                 schedule.load_state_dict(sched_state)
             state_lib.set_learning_rate(optimizer, schedule.lr)
@@ -212,7 +267,7 @@ def train(configs: dict, max_steps_per_epoch: Optional[int] = None,
 
     for epoch in range(start_epoch, n_epochs):
         t0 = time.time()
-        generator = torch.Generator().manual_seed(42 + epoch)
+        generator = epoch_generator(epoch, mesh)
         loader_dict["train"].set_epoch(epoch)
         # per-step losses stay on the device until the epoch's end
         train_losses: dict = {"total": [], "bce": [], "alignment": []}
@@ -221,13 +276,20 @@ def train(configs: dict, max_steps_per_epoch: Optional[int] = None,
                 disable=None)):
             if max_steps_per_epoch and step_idx >= max_steps_per_epoch:
                 break
+            if mesh is not None:
+                raw = shard_batch(mesh, raw)
             batch = prepare_batch(raw, text_encoder, train_cfg, device,
                                   token_caches["train"])
             metrics = train_step(model, optimizer, batch, train_cfg,
-                                 generator)
+                                 generator, mesh)
             step += 1
             for k in train_losses:
                 train_losses[k].append(metrics[k])
+        if data_group is not None and train_losses["total"]:
+            # this rank's shares of each step's parts, summed once
+            parts = reduce_sum(torch.stack(
+                [torch.stack(v) for v in train_losses.values()]), data_group)
+            train_losses = dict(zip(train_losses, parts.unbind()))
         train_losses = {k: [float(x) for x in v]
                         for k, v in train_losses.items()}
 
@@ -237,9 +299,17 @@ def train(configs: dict, max_steps_per_epoch: Optional[int] = None,
         for step_idx, raw in enumerate(loader_dict["valid"]):
             if max_steps_per_epoch and step_idx >= max_steps_per_epoch:
                 break
+            if mesh is not None:
+                raw = shard_batch(mesh, raw)
             batch = prepare_batch(raw, text_encoder, train_cfg, device,
                                   token_caches["valid"])
-            metrics = eval_step(model, batch, train_cfg, pred_threshold)
+            metrics = eval_step(model, batch, train_cfg, pred_threshold,
+                                data_group)
+            if data_group is not None:  # float64: the counts stay exact
+                keys = ("total", "bce", "alignment", "tp", "fp", "fn", "tn")
+                summed = reduce_sum(torch.stack(
+                    [metrics[k].double() for k in keys]), data_group)
+                metrics = dict(zip(keys, summed.tolist()))
             for k in ("total", "bce", "alignment"):
                 ev[k].append(float(metrics[k]))
             for k in ("tp", "fp", "fn", "tn"):
@@ -252,6 +322,12 @@ def train(configs: dict, max_steps_per_epoch: Optional[int] = None,
         f1 = 2 * precision * recall / (precision + recall + 1e-6)
         valid_loss = float(np.mean(ev["total"])) if ev["total"] else 0.0
 
+        new_lr = schedule.step(valid_loss)
+        state_lib.set_learning_rate(optimizer, new_lr)
+        state_lib.save_checkpoint(out_dir, epoch + 1, model, optimizer,
+                                  schedule.state_dict(), step, mesh)
+        if mesh is not None and mesh.rank != 0:
+            continue
         # log.txt epoch block (train.py:235-240 format)
         with open(os.path.join(out_dir, "log.txt"), "a") as f:
             e = epoch + 1
@@ -272,11 +348,6 @@ def train(configs: dict, max_steps_per_epoch: Optional[int] = None,
             f.write(
                 f"VALID EPOCH {e:03d} | TP: {ev['tp']} | FP: {ev['fp']} | "
                 f"FN: {ev['fn']} | TN: {ev['tn']}\n")
-
-        new_lr = schedule.step(valid_loss)
-        state_lib.set_learning_rate(optimizer, new_lr)
-        state_lib.save_checkpoint(out_dir, epoch + 1, model, optimizer,
-                                  schedule.state_dict(), step)
         log_fn(f"epoch {epoch + 1} done in {time.time() - t0:.1f}s | "
                f"train loss {np.mean(train_losses['total']):.4f} | "
                f"valid loss {valid_loss:.4f} | lr {new_lr:.2e}")

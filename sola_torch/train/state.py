@@ -12,6 +12,12 @@ model's reference-named ``state_dict`` (what the reference saves,
 train.py:246, and what ``sola_tpu.train.state.load_torch_weights`` and the
 JAX eval CLI read), and ``epoch_N.resume.pth`` beside it with the
 optimizer, the plateau schedule, the step and the epoch.
+
+On a (data, model) mesh (``parallel/mesh.py``) the clip takes the global
+norm over the model group's shards, each element once; checkpoints are
+gathered into the single-device names and written by rank 0 alone, and a
+resume shards the weights and AdamW's moments alike
+(``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -22,15 +28,27 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from sola_torch.parallel import tp
 
 
 class Optimizer:
-    """AdamW with global-norm clipping before each step."""
+    """AdamW with global-norm clipping before each step.
+
+    ``split``: one flag per parameter, True where a model ``group`` splits
+    it; the squares of split gradients are summed over the group and those
+    of replicated ones, equal on every rank, counted once."""
 
     def __init__(self, params, lr: float, grad_clip_norm: float = 1.0,
-                 weight_decay: float = 0.01):
-        self.params = [p for p in params if p.requires_grad]
+                 weight_decay: float = 0.01, split=None, group=None):
+        params = list(params)
+        keep = [p.requires_grad for p in params]
+        self.params = [p for p, k in zip(params, keep) if k]
+        self.group = group
+        self.split = (torch.tensor([s for s, k in zip(split, keep) if k])
+                      if group is not None else None)
         self.grad_clip_norm = float(grad_clip_norm or 0.0)
         self.adamw = torch.optim.AdamW(self.params, lr=lr,
                                        betas=(0.9, 0.999), eps=1e-8,
@@ -41,8 +59,15 @@ class Optimizer:
         returns the norm before clipping (on the gradients' device, no
         host sync)."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)).float())
+        norms = torch.stack(torch._foreach_norm(grads)).float()
+        if self.group is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:  # a mesh's ranks hold every parameter's gradient
+            sq = norms.square()
+            split = self.split.to(sq.device)
+            shards = torch.where(split, sq, 0.0).sum()
+            dist.all_reduce(shards, group=self.group)
+            norm = torch.sqrt(shards + torch.where(split, 0.0, sq).sum())
         if self.grad_clip_norm > 0:
             torch._foreach_mul_(grads, torch.where(
                 norm < self.grad_clip_norm, 1.0, self.grad_clip_norm / norm))
@@ -64,8 +89,9 @@ class Optimizer:
 
 
 def make_optimizer(params, lr: float, grad_clip_norm: float = 1.0,
-                   weight_decay: float = 0.01) -> Optimizer:
-    return Optimizer(params, lr, grad_clip_norm, weight_decay)
+                   weight_decay: float = 0.01, split=None,
+                   group=None) -> Optimizer:
+    return Optimizer(params, lr, grad_clip_norm, weight_decay, split, group)
 
 
 def set_learning_rate(optimizer: Optimizer, lr: float) -> None:
@@ -103,15 +129,31 @@ def checkpoint_paths(ckpt_dir: str, epoch: int) -> tuple:
     return base + ".pth", base + ".resume.pth"
 
 
+def _param_names(model: nn.Module) -> list:
+    """Parameter names in the optimizer's index order."""
+    return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
 def save_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module,
                     optimizer: Optimizer, schedule_state: Optional[dict],
-                    step: int) -> str:
+                    step: int, mesh=None) -> str:
+    """Write ``epoch_N.pth`` and its resume file. On a mesh every rank
+    calls: the ranks of data index 0 gather the shards, rank 0 writes, and
+    no rank returns before the files are complete."""
     weights, resume = checkpoint_paths(ckpt_dir, epoch)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               weights)
-    torch.save({"optimizer": optimizer.state_dict(),
-                "schedule": schedule_state or {}, "step": int(step),
-                "epoch": epoch}, resume)
+    state, opt_state = model.state_dict(), optimizer.state_dict()
+    if mesh is not None and mesh.data_index == 0:
+        dims = tp.split_dims(state)
+        opt_state = tp.gather_optimizer_state(
+            opt_state, _param_names(model), dims, mesh.model_group)
+        state = tp.gather_state_dict(state, mesh.model_group)
+    if mesh is None or mesh.rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in state.items()}, weights)
+        torch.save({"optimizer": opt_state,
+                    "schedule": schedule_state or {}, "step": int(step),
+                    "epoch": epoch}, resume)
+    if mesh is not None:
+        dist.barrier()
     return weights
 
 
@@ -127,15 +169,22 @@ def latest_checkpoint_epoch(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module,
-                       optimizer: Optimizer) -> tuple:
-    """Load ``epoch_N`` into ``model`` and ``optimizer``; returns
-    (epoch, step, schedule state)."""
+                       optimizer: Optimizer, mesh=None) -> tuple:
+    """Load ``epoch_N`` into ``model`` and ``optimizer`` (on a mesh: this
+    rank's shards of both); returns (epoch, step, schedule state)."""
     weights, resume = checkpoint_paths(ckpt_dir, epoch)
     device = next(model.parameters()).device
-    model.load_state_dict(torch.load(weights, map_location=device,
-                                     weights_only=True))
+    full = torch.load(weights, map_location=device, weights_only=True)
     state = torch.load(resume, map_location=device, weights_only=True)
-    optimizer.load_state_dict(state["optimizer"])
+    opt_state = state["optimizer"]
+    if mesh is not None and mesh.n_model > 1:
+        dims = tp.split_dims(full)
+        opt_state = tp.shard_optimizer_state(
+            opt_state, _param_names(model), dims, mesh.n_model,
+            mesh.model_index)
+        full = tp.shard_state_dict(full, mesh.n_model, mesh.model_index)
+    model.load_state_dict(full)
+    optimizer.load_state_dict(opt_state)
     return state["epoch"], state["step"], state["schedule"]
 
 

@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax():
                  "eval.evaluator", "eval.inference", "eval.metrics",
                  "cli.eval", "cli.inference", "utils.viz",
                  "trackgen.sam2.packed", "trackgen.packed_engine",
-                 "trackgen.tokens_gt"):
+                 "trackgen.tokens_gt", "parallel.distributed",
+                 "parallel.mesh", "parallel.tp", "parallel.cp"):
         assert f"sola_torch.{name}" in mods, name
     code = f"""
 import importlib.abc, sys
