@@ -45,7 +45,10 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    expressions; checks the prompt JSON's schema, a tracked prompt per
    expression, the written masklets and tokens, and the kernels' launches
    by call site (deformable: encoder and decoder, 6 + 6 per forward; flash:
-   SAM2 image encode, video encode, propagation).
+   SAM2 image encode, video encode, propagation). Then one forward of the
+   Swin-B GroundingDINO (a swinb checkpoint name, absent: seeded random
+   weights) on the same frame and expressions: 6 + 6 deformable launches,
+   finite boxes, its time beside Swin-T's.
 7. A small reference for that path: both stages at GDINOConfig.tiny_test
    and SAM2Config.tiny_test on the card (fp32) against the CPU.
 8. The training attention kernels against their plain versions at the
@@ -115,6 +118,20 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    memory cross shape's 2 key shards (one entry's second shard fully
    masked) against the kernel over all keys and the plain version, and
    the eval CLI over the run's checkpoint against one process.
+16. Selection training killed and resumed on the card, after the phase-2
+   build: ``python -m sola_torch.cli.train`` at SelectionConfig() with the
+   flash route, dropout 0.2 and attention dropout 0.1 on a cut phase-9
+   corpus (8 train videos, 2 valid, phase 9's batch shapes), 3 epochs,
+   once unbroken and once SIGKILLed inside epoch 2 and resumed with
+   --resume (the resumed process counts the flash kernels' launches at
+   each call site). Epochs 2 and 3's weights and resume files must be
+   torch.equal to the unbroken run's and log.txt equal; a resume from an
+   epoch_1.pth with one weight moved by one ulp must end elsewhere; one
+   train and one validation step under
+   torch.use_deterministic_algorithms(True) must raise nothing; two equal
+   3-step runs must be equal with deterministic cuDNN (how many tensors
+   differ with its default algorithms is reported), and the warm train
+   step is timed with either.
 
 The second-to-last line is a JSON object listing every ported kernel; the
 line before it is the card's name and power limit; the last line is
@@ -1043,6 +1060,61 @@ def run_gdino_path(fa, di) -> dict:
            f"({prof['deform_share_of_busy']:.3f} of busy), "
            f"{prof['kernels']} kernels"))
     del grounding, image_pred, video_pred
+    torch.cuda.empty_cache()
+    row["swin_b"] = swin_b_forward(di, frames[0])
+    log(f"  Swin-B GroundingDINO (a swinb checkpoint name, absent: seeded "
+        f"random weights; {row['swin_b']['params_m']:.1f}M params, built in "
+        f"{row['swin_b']['build_s']:.1f} s): one forward of the 3 "
+        f"expressions, deformable launches {row['swin_b']['deform_launches']}"
+        f", boxes finite; warm forward {row['swin_b']['forward_ms']:.2f} ms "
+        f"beside Swin-T's {bd['gdino_forward_ms']:.2f} ms")
+    return row
+
+
+def swin_b_forward(di, frame) -> dict:
+    """Phase 6's Swin-B GroundingDINO: the loader the CLIs use, given a
+    swinb-named checkpoint path that is absent, builds GDINOConfig with
+    SwinConfig.base() and seeded random weights; one forward of the
+    phase's 3 expressions on its frame, the deformable kernel's launches
+    at the encoder and decoder (zeroed just before, read just after), the
+    boxes and logits finite, and the warm forward's time."""
+    from sola_torch.trackgen.gdino.model import load_grounding_dino
+    from sola_torch.trackgen.gdino.swin import SwinConfig
+    t0 = time.perf_counter()
+    grounding = load_grounding_dino(
+        "pretrained_models/groundingdino_swinb_cogcoor.pth", device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gcfg = grounding.cfg
+    if gcfg.swin != SwinConfig.base():
+        raise AssertionError(f"a swinb checkpoint name built {gcfg.swin}")
+    sites = deform_sites(grounding)
+    texts = [e["exp"] for e in GD_EXPRESSIONS.values()]
+    torch.cuda.synchronize()
+    di.launches = 0
+    sites.reset()
+    _, pendings = grounding.enqueue_boxes(frame, texts)
+    torch.cuda.synchronize()
+    launches = di.launches  # read right after
+    deform = dict(sites.counts)
+    chunks = -(-len(texts) // grounding.max_expr_batch)
+    want = {"encoder": gcfg.enc_layers * chunks,
+            "decoder": gcfg.dec_layers * chunks}
+    outs = [out for *_, out in pendings]
+    finite = all(bool(torch.isfinite(o["pred_boxes"]).all())
+                 and not bool(torch.isnan(o["pred_logits"]).any())
+                 for o in outs)
+    shapes = [tuple(o["pred_boxes"].shape) for o in outs]
+    if deform != want or launches != sum(want.values()) or not finite:
+        raise AssertionError(f"Swin-B forward: deformable launches {deform} "
+                             f"of {launches} (want {want}), boxes {shapes} "
+                             f"finite {finite}")
+    forward_ms = host_ms(lambda: grounding.enqueue_boxes(frame, texts))
+    row = {"swin": dataclasses.asdict(gcfg.swin), "build_s": build_s,
+           "params_m": sum(p.numel() for p in grounding.model.parameters())
+           / 1e6, "deform_launches": deform, "boxes_shape": shapes,
+           "forward_ms": forward_ms}
+    del grounding, pendings, outs
     torch.cuda.empty_cache()
     return row
 
@@ -3672,9 +3744,7 @@ def run_nccl_world1(fa) -> dict:
         finals = []
         # cuDNN's default conv backward algorithms may sum in another order
         # from one run to the next, so two equal steps differ in last bits
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
+        with loop.deterministic_cudnn():
             for m in (mesh, None):
                 model = SelectionModel(cfg)
                 init_weights(model, 42)
@@ -3683,8 +3753,6 @@ def run_nccl_world1(fa) -> dict:
                 loop.train_step(model, opt, batch, train_cfg,
                                 torch.Generator().manual_seed(0), m)
                 finals.append(model.state_dict())
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
         if any(not torch.equal(finals[0][k], finals[1][k])
                for k in finals[0]):
             raise AssertionError("the mesh step at n_model 1 differs from "
@@ -3911,9 +3979,431 @@ def run_distributed(fa) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: selection training killed and resumed on the card
+# ---------------------------------------------------------------------------
+
+# phase 9's batch shapes (40 of 64 tracks, 64 frames, batch 8) on a cut
+# corpus: 8 train videos x 4 expressions (4 steps an epoch) and 2 valid
+# videos (1 batch), 3 epochs, SelectionConfig() with the flash route and
+# dropout 0.2 / attention dropout 0.1
+RESUME_TRAIN_VIDEOS, RESUME_VALID_VIDEOS, RESUME_EPOCHS = 8, 2, 3
+RESUME_KILL_EPOCH = 2  # the SIGKILL lands inside this epoch
+RESUME_TIMEOUT_S = 300
+# the warm step with and without deterministic cuDNN, in turns
+DET_TURNS = (False, True, True, False)
+
+
+class ShapeSiteCounter:
+    """The two flash kernels' launches by call site in a process whose
+    autograd graph must stay as the train CLI builds it: phase 9's module
+    backward hooks add nodes that change the order in which a tensor's
+    gradients are summed. The wrappers alone count; this reads their
+    counters around each call of ``flash_forward`` / ``flash_backward``
+    and keys the growth by the call's query length, which differs between
+    the three sites here (64 track slots, 8 frames after the motion
+    encoder, 64 x 8 (track, frame) pairs); the sites are named in the
+    order a layer first calls them."""
+
+    def __init__(self, fa):
+        self.by_lq = {}
+        fwd, bwd = fa.flash_forward, fa.flash_backward
+
+        def counted(fn, kind, counter):
+            def call(q, *args, **kwargs):
+                before = getattr(fa, counter)
+                out = fn(q, *args, **kwargs)
+                counts = self.by_lq.setdefault(q.shape[2],
+                                               {"fwd": 0, "bwd": 0})
+                counts[kind] += getattr(fa, counter) - before
+                return out
+            return call
+
+        fa.flash_forward = counted(fwd, "fwd", "launches")
+        fa.flash_backward = counted(bwd, "bwd", "bwd_launches")
+
+    def sites(self) -> dict:
+        return {f"{site} (Lq {lq})": counts for site, (lq, counts)
+                in zip(ATTN_SITES, self.by_lq.items())}
+
+
+def resumed_train(workdir: str, name: str) -> dict:
+    """A resumed run: the train CLI's main with --resume, its flash
+    launches counted by site (``ShapeSiteCounter``) and not otherwise
+    touched, so it computes what ``python -m sola_torch.cli.train`` does.
+    It starts while the run to kill trains: it imports what the CLI's
+    start imports (transformers, for the text encoder's checkpoint probe,
+    offline) and opens the card, then waits for the file ``go_NAME``."""
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+    try:
+        import transformers  # noqa: F401
+    except ImportError:
+        pass
+    from sola_torch.cli import train as train_cli
+    from sola_torch.ops import flash_attention as fa
+    with open(os.path.join(workdir, "resume.json")) as f:
+        argv = json.load(f)[name]
+    torch.zeros(1, device="cuda")
+    go = os.path.join(workdir, f"go_{name}")
+    deadline = time.monotonic() + RESUME_TIMEOUT_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {go} within {RESUME_TIMEOUT_S} s")
+        time.sleep(0.01)
+    sites = ShapeSiteCounter(fa)
+    torch.cuda.synchronize()
+    fa.launches = fa.bwd_launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(argv)
+    torch.cuda.synchronize()
+    return {"launches": {"flash_attn_fwd": fa.launches,
+                         "flash_attn_bwd": fa.bwd_launches},  # read right after
+            "launches_by_site": sites.sites(),
+            "train_s": time.perf_counter() - t0}
+
+
+def role_determinism_check(workdir: str) -> dict:
+    """One train step and one validation step of phase 16's configuration
+    under ``torch.use_deterministic_algorithms(True)``, which raises on
+    every op without a deterministic algorithm and fills uninitialized
+    memory with NaN. The process starts with CUBLAS_WORKSPACE_CONFIG set,
+    as torch requires before it lets cuBLAS run in that mode."""
+    import yaml
+
+    from sola_torch.data.dataset import get_loader_dict
+    from sola_torch.models.selection import SelectionConfig
+    from sola_torch.models.text import CachingTextEncoder, build_text_encoder
+    from sola_torch.train import loop
+    from sola_torch.train import state as state_lib
+    with open(os.path.join(workdir, "resume.yaml")) as f:
+        configs = yaml.safe_load(f)
+    torch.use_deterministic_algorithms(True)
+    cfg = SelectionConfig.from_dict(configs["model"])
+    model = loop.build_model(cfg, "cuda")
+    text = CachingTextEncoder(build_text_encoder(configs["model"], "cuda"))
+    loaders = get_loader_dict(configs["dataset"])
+    batch = loop.prepare_batch(next(iter(loaders["train"])), text,
+                               configs["train"], "cuda")
+    optimizer = state_lib.make_optimizer(model.parameters(), lr=5e-6)
+    metrics = loop.train_step(model, optimizer, batch, configs["train"],
+                              torch.Generator().manual_seed(0))
+    valid = loop.eval_step(model, loop.prepare_batch(
+        next(iter(loaders["valid"])), text, configs["train"], "cuda"),
+        configs["train"], 0.5)
+    torch.cuda.synchronize()
+    values = [float(metrics[k]) for k in ("total", "total_grad_norm")] + [
+        float(valid["total"])]
+    finite = bool(np.isfinite(values).all()) and all(
+        bool(torch.isfinite(p).all()) for p in model.parameters())
+    return {"deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+            "cublas_workspace_config": os.environ.get(
+                "CUBLAS_WORKSPACE_CONFIG"),
+            "loss_grad_norm_valid_loss": values, "finite": finite}
+
+
+ROLES = {"resumed_train": lambda w: resumed_train(w, "resumed"),
+         "fault_train": lambda w: resumed_train(w, "fault"),
+         "determinism_check": role_determinism_check}
+
+
+def run_role(role: str, workdir: str) -> None:
+    """Entry of a phase-16 process: runs its role and writes its JSON."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py needs a CUDA device; none is available")
+    result = ROLES[role](workdir)
+    with open(os.path.join(workdir, f"{role}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def start(cmd: list, log_path: str, env=None) -> subprocess.Popen:
+    with open(log_path, "w") as out:
+        return subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                cwd=ROOT, env=env)
+
+
+def finish(proc: subprocess.Popen, log_path: str, what: str,
+           deadline: float) -> None:
+    """Wait for ``proc`` until ``deadline``; kill it and raise if it hangs
+    or fails."""
+    try:
+        proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    if proc.returncode != 0:
+        with open(log_path) as f:
+            raise AssertionError(f"{what} failed (exit {proc.returncode}):\n"
+                                 f"{f.read()[-3000:]}")
+
+
+def same_objects(a, b) -> bool:
+    """Saved objects equal bit for bit: tensors ``torch.equal`` with equal
+    dtypes and devices, every other leaf ``==``."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.device == b.device
+                and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(same_objects(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_objects(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def read_text(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def determinism_cost(configs: dict) -> dict:
+    """What ``train()``'s deterministic cuDNN buys and costs at phase 9's
+    batch shapes: two equal 3-step runs from one seeded init with cuDNN's
+    default algorithms and with the deterministic ones (the tensors that
+    differ between the two runs of each; none may with the deterministic
+    ones), and the warm train step under each, in turns."""
+    from sola_torch.data.dataset import get_loader_dict
+    from sola_torch.models.selection import SelectionConfig
+    from sola_torch.models.text import CachingTextEncoder, build_text_encoder
+    from sola_torch.train import loop
+    from sola_torch.train import state as state_lib
+    cfg = SelectionConfig.from_dict(configs["model"])
+    model = loop.build_model(cfg, "cuda")
+    text = CachingTextEncoder(build_text_encoder(configs["model"], "cuda"))
+    batch = loop.prepare_batch(
+        next(iter(get_loader_dict(configs["dataset"])["train"])), text,
+        configs["train"], "cuda")
+    optimizer = state_lib.make_optimizer(model.parameters(), lr=5e-6)
+    gen = torch.Generator().manual_seed(0)
+
+    def differing_after_3_steps() -> int:
+        finals = []
+        for _ in range(2):
+            m = loop.build_model(cfg, "cuda")
+            opt = state_lib.make_optimizer(m.parameters(), lr=5e-6)
+            g = torch.Generator().manual_seed(0)
+            for _ in range(3):
+                loop.train_step(m, opt, batch, configs["train"], g)
+            finals.append(m.state_dict())
+        return sum(not torch.equal(finals[0][k], finals[1][k])
+                   for k in finals[0])
+
+    times = {False: [], True: []}
+    differing = {}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    try:
+        for deterministic in DET_TURNS:
+            cudnn.deterministic, cudnn.benchmark = deterministic, False
+            differing.setdefault(deterministic, differing_after_3_steps())
+            times[deterministic].append(host_ms(
+                lambda: loop.train_step(model, optimizer, batch,
+                                        configs["train"], gen), iters=10))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    if differing[True]:
+        raise AssertionError(f"two equal runs with deterministic cuDNN "
+                             f"differ in {differing[True]} tensors")
+    return {"default_ms": times[False], "deterministic_ms": times[True],
+            "cost": (statistics.mean(times[True])
+                     / statistics.mean(times[False]) - 1.0),
+            "differing_tensors_default": differing[False],
+            "differing_tensors_deterministic": differing[True]}
+
+
+def run_kill_and_resume(fa) -> dict:
+    """Phase 16; its corpus and checkpoints (about 2 GB) are removed
+    however it ends, and no process it started outlives it."""
+    root = os.path.join(OUT_DIR, "resume")
+    os.makedirs(root)
+    started = []
+    try:
+        return kill_and_resume(fa, root, started)
+    finally:
+        for proc in started:  # none outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        drop_bulk(root)
+
+
+def kill_and_resume(fa, root: str, started: list) -> dict:
+    import yaml
+
+    from sola_torch import config as config_lib
+    from sola_torch.train import state as state_lib
+    t_phase = time.perf_counter()
+    dataset = selection_corpus(os.path.join(root, "data"),
+                               RESUME_TRAIN_VIDEOS, RESUME_VALID_VIDEOS,
+                               FRAMES, OBJECTS, DISTRACTORS, BATCH)
+    dataset["num_workers"] = 2
+    configs = config_lib.load_config("mevis/default")
+    configs["exp_name"] = "resume"
+    configs["model"].update(use_pallas_attention=True, dropout_p=0.2,
+                            attn_dropout_p=0.1)
+    configs["train"]["n_epochs"] = RESUME_EPOCHS
+    configs["dataset"] = dataset
+    configs["results"] = {k: os.path.join(root, k) for k in (
+        "output_dir", "eval_output_dir", "test_output_dir")}
+    yaml_path = os.path.join(root, "resume.yaml")
+    with open(yaml_path, "w") as f:
+        yaml.safe_dump(configs, f)
+
+    def train_cmd(name, resume=False):
+        return [sys.executable, "-m", "sola_torch.cli.train", "--config",
+                yaml_path, "--device", "cuda", "--results.output_dir",
+                os.path.join(root, name)] + (["--resume"] if resume else [])
+
+    def train_dir(name):
+        return os.path.join(root, name, "resume", "mevis")
+
+    def logfile(name):
+        return os.path.join(root, f"{name}.out")
+
+    with open(os.path.join(root, "resume.json"), "w") as f:
+        json.dump({name: train_cmd(name, resume=True)[3:]
+                   for name in ("resumed", "fault")}, f)
+    role = [sys.executable, os.path.abspath(__file__), "--role"]
+    deadline = time.monotonic() + RESUME_TIMEOUT_S
+    procs = {"unbroken": start(train_cmd("unbroken"), logfile("unbroken")),
+             "killed": start(train_cmd("resumed"), logfile("killed")),
+             "determinism_check": start(
+                 role + ["determinism_check", root],
+                 logfile("determinism_check"),
+                 env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")),
+             # they start now and wait for the killed run's checkpoint
+             "resumed": start(role + ["resumed_train", root],
+                              logfile("resumed")),
+             "fault": start(role + ["fault_train", root], logfile("fault"))}
+    started += procs.values()
+    t0 = time.perf_counter()
+    killed = procs.pop("killed")
+    last_line = f"VALID EPOCH {RESUME_KILL_EPOCH - 1:03d} | TP:"
+    log_txt = os.path.join(train_dir("resumed"), "log.txt")
+    while killed.poll() is None and time.monotonic() < deadline and not (
+            os.path.exists(log_txt) and last_line in read_text(log_txt)):
+        time.sleep(0.005)
+    if killed.poll() is not None:
+        raise AssertionError(f"the run to kill ended first (exit "
+                             f"{killed.returncode}):\n"
+                             f"{read_text(logfile('killed'))[-3000:]}")
+    killed.kill()  # SIGKILL
+    killed.wait()
+    kill_s = time.perf_counter() - t0
+    landed = state_lib.latest_checkpoint_epoch(train_dir("resumed"))
+    leftovers = sorted(n for n in os.listdir(train_dir("resumed"))
+                       if n.endswith(".tmp"))
+    if landed != RESUME_KILL_EPOCH - 1:
+        raise AssertionError(f"the kill landed after epoch {landed} ended, "
+                             f"not inside epoch {RESUME_KILL_EPOCH}")
+
+    # the planted fault: the killed run's checkpoint with one weight
+    # element moved by one ulp, resumed the same way
+    os.makedirs(train_dir("fault"))
+    for name in os.listdir(train_dir("resumed")):
+        if not name.endswith(".tmp"):
+            shutil.copy(os.path.join(train_dir("resumed"), name),
+                        train_dir("fault"))
+    weights = os.path.join(train_dir("fault"), f"epoch_{landed}.pth")
+    state = torch.load(weights, weights_only=True)
+    planted = "object_lang_align_layers.0.obj_attn.q_proj.weight"
+    flat = state[planted].view(-1)
+    flat[0] = torch.nextafter(flat[0], torch.tensor(float("inf")))
+    torch.save(state, weights)
+    t0 = time.perf_counter()
+    for name in ("resumed", "fault"):
+        open(os.path.join(root, f"go_{name}"), "w").close()
+    for name, proc in procs.items():
+        finish(proc, logfile(name), f"phase 16 {name} run", deadline)
+    runs_s = time.perf_counter() - t0
+
+    resumed = json.load(open(os.path.join(root, "resumed_train.json")))
+    fault_run = json.load(open(os.path.join(root, "fault_train.json")))
+    check = json.load(open(os.path.join(root, "determinism_check.json")))
+    for name in ("resumed", "fault"):
+        if f"resumed from epoch {landed}" not in read_text(logfile(name)):
+            raise AssertionError(f"the {name} run did not restore epoch "
+                                 f"{landed}:\n{read_text(logfile(name))}")
+    unequal = []
+    for epoch in range(RESUME_KILL_EPOCH, RESUME_EPOCHS + 1):
+        for name in state_lib.checkpoint_paths("", epoch):
+            a, b = (torch.load(os.path.join(train_dir(run), name),
+                               weights_only=True)
+                    for run in ("unbroken", "resumed"))
+            if not same_objects(a, b):
+                unequal.append(name)
+    logs_equal = (read_text(os.path.join(train_dir("unbroken"), "log.txt"))
+                  == read_text(log_txt))
+    final = f"epoch_{RESUME_EPOCHS}.pth"
+    want_w, fault_w = (torch.load(os.path.join(train_dir(run), final),
+                                  weights_only=True)
+                       for run in ("unbroken", "fault"))
+    fault_moved = sum(not torch.equal(want_w[k], fault_w[k]) for k in want_w)
+    fault_max = max((want_w[k] - fault_w[k]).abs().max().item()
+                    for k in want_w)
+    epochs = RESUME_EPOCHS - landed
+    steps = RESUME_TRAIN_VIDEOS * OBJECTS // BATCH
+    valid_batches = RESUME_VALID_VIDEOS * OBJECTS // BATCH
+    want = {"fwd": 2 * (steps + valid_batches) * epochs,
+            "bwd": 2 * steps * epochs}
+    by_site = resumed["launches_by_site"]
+    if (unequal or not logs_equal or fault_moved == 0
+            or len(by_site) != 3 or any(c != want for c in by_site.values())
+            or resumed["launches"]["flash_attn_fwd"] != 3 * want["fwd"]
+            or resumed["launches"]["flash_attn_bwd"] != 3 * want["bwd"]
+            or not check["deterministic_algorithms"] or not check["finite"]):
+        raise AssertionError(
+            f"kill and resume: files unequal to the unbroken run's "
+            f"{unequal}, log.txt equal {logs_equal}; the one-ulp fault moved "
+            f"{fault_moved} tensors; resumed launches {resumed['launches']},"
+            f" by site {by_site} (want {want} each); deterministic check "
+            f"{check}")
+    step = determinism_cost(configs)
+    out = {"kill_s": kill_s, "kill_inside_epoch": RESUME_KILL_EPOCH,
+           "newest_checkpoint_after_kill": landed,
+           "unfinished_saves_left": leftovers,
+           "compared_files": [n for e in range(RESUME_KILL_EPOCH,
+                                               RESUME_EPOCHS + 1)
+                              for n in state_lib.checkpoint_paths("", e)],
+           "log_equal": logs_equal, "resumed": resumed,
+           "resumed_and_fault_runs_s": runs_s,
+           "fault": {"planted": planted, "tensors_moved": fault_moved,
+                     "max_abs_diff": fault_max,
+                     "launches": fault_run["launches"]},
+           "determinism_check": check, "warm_step": step,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  SIGKILL {kill_s:.2f} s after launch, inside epoch "
+        f"{RESUME_KILL_EPOCH} (newest checkpoint {landed}, unfinished saves "
+        f"left {leftovers}); resumed run {resumed['train_s']:.2f} s in the "
+        f"CLI: epochs {RESUME_KILL_EPOCH}-{RESUME_EPOCHS}' weights and "
+        f"resume files torch.equal to the unbroken run's "
+        f"({len(out['compared_files'])} files), log.txt equal; launches "
+        f"{resumed['launches']}, by site {by_site}")
+    log(f"  one ulp planted in epoch {landed}'s {planted}[0]: epoch "
+        f"{RESUME_EPOCHS}'s weights differ in {fault_moved} tensors (max "
+        f"{fault_max:.3g}); torch.use_deterministic_algorithms(True): a "
+        f"train and a validation step raise nothing, finite "
+        f"{check['finite']}")
+    log(f"  two equal 3-step runs differ in "
+        f"{step['differing_tensors_default']} tensors with cuDNN's default "
+        f"algorithms, in {step['differing_tensors_deterministic']} with the "
+        f"deterministic ones")
+    log(f"  warm train step (batch {BATCH}) with cuDNN's default algorithms "
+        f"{[round(t, 3) for t in step['default_ms']]} ms, deterministic "
+        f"{[round(t, 3) for t in step['deterministic_ms']]} ms (cost "
+        f"{100 * step['cost']:+.2f}%); phase {out['phase_s']:.1f} s; card "
+        f"{smi_line()}")
+    return out
+
+
 def main() -> None:
     if len(sys.argv) == 4 and sys.argv[1] == "--rank":  # a phase-15 rank
         run_rank(sys.argv[2], sys.argv[3])
+        return
+    if len(sys.argv) == 4 and sys.argv[1] == "--role":  # a phase-16 process
+        run_role(sys.argv[2], sys.argv[3])
         return
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
@@ -3987,6 +4477,10 @@ def main() -> None:
         "(data, model) mesh at SelectionConfig(), the eval CLI over 2 "
         "ranks")
     distributed = run_distributed(fa)
+    log("phase 16: selection training at SelectionConfig() (flash route, "
+        "dropout) through the train CLI: unbroken, SIGKILLed inside epoch "
+        f"{RESUME_KILL_EPOCH} and resumed, bit for bit")
+    resume = run_kill_and_resume(fa)
 
     head = kernel["rows"][0]  # memory cross-attention: most of the time
     # the main path's shape: 3 expressions padded to 4, fp32 (CLI default)
@@ -4012,10 +4506,14 @@ def main() -> None:
                               for r in distributed["cp"]["ranks"]},
                            **{f"train_mesh_rank{r['rank']}": r["launches"][
                                "flash_attn_fwd"]
-                              for r in distributed["mesh"]["ranks"]}},
+                              for r in distributed["mesh"]["ranks"]},
+                           "train_resumed":
+                           resume["resumed"]["launches"]["flash_attn_fwd"]},
         "ms_deform_attn_fwd": {
             "tokens_grid": main_path["deform_launches"],
-            "gdino": gdino_path["launches"]["ms_deform_attn_fwd"]}}
+            "gdino": gdino_path["launches"]["ms_deform_attn_fwd"],
+            "gdino_swin_b_forward": sum(
+                gdino_path["swin_b"]["deform_launches"].values())}}
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "sola_torch/csrc/flash_attn_fwd.cu",
@@ -4040,7 +4538,8 @@ def main() -> None:
                     "sola_tpu/ops/flash_attention.py:159",
         "launches": training["launches"]["flash_attn_bwd"] + sum(
             r["launches"]["flash_attn_bwd"]
-            for r in distributed["mesh"]["ranks"]),
+            for r in distributed["mesh"]["ranks"])
+        + resume["resumed"]["launches"]["flash_attn_bwd"],
         "max_abs_err": max(r[f"{g}_{t}"]["max_abs_err"]
                            for r in training_kernels["rows"]
                            for g in ("dq", "dk", "dv")
@@ -4054,7 +4553,8 @@ def main() -> None:
         "launches_by_path": {
             "train": training["launches"]["flash_attn_bwd"],
             **{f"train_mesh_rank{r['rank']}": r["launches"]["flash_attn_bwd"]
-               for r in distributed["mesh"]["ranks"]}},
+               for r in distributed["mesh"]["ranks"]},
+            "train_resumed": resume["resumed"]["launches"]["flash_attn_bwd"]},
         "shapes": [{"shape": r["shape"], "plan": r["plan"], **r["bwd"]}
                    for r in training_kernels["rows"]]})
     kernels.append({
@@ -4082,7 +4582,7 @@ def main() -> None:
                    "grid_small_reference": grid_small,
                    "packed_paths": packed_paths,
                    "packed_small_reference": packed_small,
-                   "distributed": distributed,
+                   "distributed": distributed, "kill_and_resume": resume,
                    "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items()

@@ -1,6 +1,6 @@
 // The attention-dropout keep mask shared by the flash forward
-// (flash_attn_fwd.cu) and both backward kernels (flash_attn_bwd.cu), which
-// must regenerate the same mask from the seed: the counter hash of
+// (flash_attn_fwd.cu) and the fused backward kernel (flash_attn_bwd.cu),
+// which must regenerate the same mask from the seed: the counter hash of
 // sola_tpu/ops/flash_attention.py::_keep_mask / _fmix32 (:28-55). An
 // entry (batch*head bh, global query q, global key c) is kept when
 //   fmix32(fmix32(seed ^ bh * 0x9E3779B1) ^ q * 0x85EBCA6B ^ c * 0xC2B2AE35)

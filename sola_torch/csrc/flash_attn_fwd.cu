@@ -13,8 +13,8 @@
 // (seed, batch*head, global query, global key) below keep_thresh; the row
 // sum l stays undropped (softmax first, then dropout on the probabilities,
 // torch SDPA's placement). The hash uses global indices, so the mask does
-// not depend on this kernel's tiles and the two backward kernels
-// (flash_attn_bwd.cu) regenerate it exactly. Each accumulator element's
+// not depend on this kernel's tiles and the fused backward kernel
+// (flash_attn_bwd.cu) regenerates it exactly. Each accumulator element's
 // global (row, column) comes from the PTX ISA's fragment layout of the
 // instruction that produced it (wgmma for bf16, mma.sync for fp32).
 //

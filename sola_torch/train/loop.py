@@ -12,7 +12,12 @@ The steps run eagerly on the device. Dropout (the motion encoder's and, in
 the model's attention, the kernels' counter hash) draws from one
 ``torch.Generator`` per epoch, seeded ``42 + epoch``, and epoch N's
 shuffle is seeded ``seed + N`` however many epochs the process ran before,
-so a run resumed from epoch N replays what the uninterrupted run did.
+so a run resumed from epoch N replays what the uninterrupted run did. On
+the card that holds bit for bit only with deterministic cuDNN algorithms
+(the motion encoder's conv backward may otherwise sum in another order from
+run to run), so ``train`` sets them for its run and restores the caller's
+flags (``deterministic_cudnn``); the port's attention kernels sum in a
+fixed order.
 ``train.steps_per_dispatch`` is accepted and its steps run one by one (the
 JAX package's scan gives the same numbers).
 
@@ -33,6 +38,7 @@ data ranks draw apart.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Optional
@@ -193,16 +199,38 @@ def epoch_generator(epoch: int, mesh=None) -> torch.Generator:
     return torch.Generator().manual_seed(42 + epoch + (data_index << 16))
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN takes deterministic algorithms only, chosen by heuristic and
+    not by timing, until the block ends; then the caller's flags return."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def train(configs: dict, max_steps_per_epoch: Optional[int] = None,
           text_encoder=None, log_fn=print, resume: bool = False,
           device="cuda") -> SelectionModel:
     """Full training run (train.py:23-246) on ``device`` (CUDA by default;
-    it raises without CUDA unless ``device="cpu"``).
+    it raises without CUDA unless ``device="cpu"``), with deterministic
+    cuDNN algorithms, so two equal runs, or a resumed run and the one it
+    continues, end bit for bit equal on the card as on the CPU.
 
     ``resume=True`` restores the newest ``epoch_N`` checkpoint of the output
     dir (weights, optimizer, schedule) and continues. Returns the model
     (on a mesh, this rank's shard). In a process group every rank calls
     it, and ``device="cuda"`` is the rank's own card."""
+    with deterministic_cudnn():
+        return _train(configs, max_steps_per_epoch, text_encoder, log_fn,
+                      resume, device)
+
+
+def _train(configs: dict, max_steps_per_epoch: Optional[int],
+           text_encoder, log_fn, resume: bool, device) -> SelectionModel:
     device = resolve_device(rank_device(device))
     configs = finalize_train_configs(configs)
     out_dir = configs["results"]["output_dir"]

@@ -11,7 +11,12 @@ Checkpoints: orbax is JAX's, so each epoch writes ``epoch_N.pth``, the
 model's reference-named ``state_dict`` (what the reference saves,
 train.py:246, and what ``sola_tpu.train.state.load_torch_weights`` and the
 JAX eval CLI read), and ``epoch_N.resume.pth`` beside it with the
-optimizer, the plateau schedule, the step and the epoch.
+optimizer, the plateau schedule, the step and the epoch. Each file is
+written to a temporary name in the same directory, flushed to disk and
+renamed onto its own, the weights first and the resume file last: a resume
+file stands only beside complete weights, and a process killed while it
+writes leaves nothing that ``latest_checkpoint_epoch`` would take (orbax
+commits the JAX package's checkpoint directories the same way).
 
 On a (data, model) mesh (``parallel/mesh.py``) the clip takes the global
 norm over the model group's shards, each element once; checkpoints are
@@ -134,12 +139,38 @@ def _param_names(model: nn.Module) -> list:
     return [n for n, p in model.named_parameters() if p.requires_grad]
 
 
+def save_atomic(obj, path: str) -> None:
+    """``torch.save`` to a temporary file beside ``path`` (a dot name that
+    no checkpoint name matches), flushed to disk, then renamed onto
+    ``path``: a reader sees the old file or the whole new one, never part
+    of it. A save that raises removes its temporary file; a killed one
+    leaves it behind, unread."""
+    directory, name = os.path.split(os.path.abspath(path))
+    tmp = os.path.join(directory, f".{name}.{os.getpid()}.tmp")
+    try:
+        with open(tmp, "wb") as f:
+            torch.save(obj, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+    dir_fd = os.open(directory, os.O_RDONLY)
+    try:  # the rename itself survives a crash of the machine
+        os.fsync(dir_fd)
+    finally:
+        os.close(dir_fd)
+
+
 def save_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module,
                     optimizer: Optimizer, schedule_state: Optional[dict],
                     step: int, mesh=None) -> str:
-    """Write ``epoch_N.pth`` and its resume file. On a mesh every rank
-    calls: the ranks of data index 0 gather the shards, rank 0 writes, and
-    no rank returns before the files are complete."""
+    """Write ``epoch_N.pth`` and then its resume file, each atomically
+    (``save_atomic``). On a mesh every rank calls: the ranks of data index
+    0 gather the shards, rank 0 writes, and no rank returns before the
+    files are complete."""
     weights, resume = checkpoint_paths(ckpt_dir, epoch)
     state, opt_state = model.state_dict(), optimizer.state_dict()
     if mesh is not None and mesh.data_index == 0:
@@ -148,17 +179,18 @@ def save_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module,
             opt_state, _param_names(model), dims, mesh.model_group)
         state = tp.gather_state_dict(state, mesh.model_group)
     if mesh is None or mesh.rank == 0:
-        torch.save({k: v.detach().cpu() for k, v in state.items()}, weights)
-        torch.save({"optimizer": opt_state,
-                    "schedule": schedule_state or {}, "step": int(step),
-                    "epoch": epoch}, resume)
+        save_atomic({k: v.detach().cpu() for k, v in state.items()}, weights)
+        save_atomic({"optimizer": opt_state,
+                     "schedule": schedule_state or {}, "step": int(step),
+                     "epoch": epoch}, resume)
     if mesh is not None:
         dist.barrier()
     return weights
 
 
 def latest_checkpoint_epoch(ckpt_dir: str) -> Optional[int]:
-    """Highest N with both ``epoch_N.pth`` and its resume file, or None."""
+    """Highest N with both ``epoch_N.pth`` and its resume file, or None.
+    The temporary file of a save that did not finish matches neither."""
     if not os.path.isdir(ckpt_dir):
         return None
     names = set(os.listdir(ckpt_dir))
@@ -175,7 +207,9 @@ def restore_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module,
     weights, resume = checkpoint_paths(ckpt_dir, epoch)
     device = next(model.parameters()).device
     full = torch.load(weights, map_location=device, weights_only=True)
-    state = torch.load(resume, map_location=device, weights_only=True)
+    # on the host: AdamW's step counts stay there, as in the run that
+    # wrote them, and load_state_dict moves the moments to the parameters
+    state = torch.load(resume, map_location="cpu", weights_only=True)
     opt_state = state["optimizer"]
     if mesh is not None and mesh.n_model > 1:
         dims = tp.split_dims(full)

@@ -20,6 +20,7 @@ from sola_tpu.trackgen.gdino import swin as jswin
 from sola_torch.models import text as ttext
 from sola_torch.trackgen.gdino import convert as tconvert
 from sola_torch.trackgen.gdino import model as tgd
+from sola_torch.trackgen.gdino import swin as tswin
 
 ATOL = 1e-4
 TEXTS = ["the red car.", "a dog running.", "the tallest person."]
@@ -116,6 +117,41 @@ def test_swin_matches_jax(models):
         {"params": variables["params"]["backbone"]}, jnp.asarray(x))
     with torch.no_grad():
         out = model.model.backbone.conv_encoder.model(_t(x))
+    assert len(out) == len(ref) == 3
+    for o, r in zip(out, ref):
+        _close(o, r)
+
+
+def test_swin_base_matches_jax(models):
+    """Swin-B (SwinConfig.base(): embed 128, heads 4 / 8 / 16 / 32, window
+    12) with only its depths cut, to 2 blocks a stage, on a 192 x 192
+    image, so stage 1's 48 x 48 tokens run plain and shifted 12-token
+    windows; its JAX weights cross through state_dict_from_jax_params."""
+    jmodel, variables, model = models
+    depths = (2, 2, 2, 2)
+    jcfg = dataclasses.replace(jswin.SwinConfig.base(), depths=depths)
+    tcfg = dataclasses.replace(tgd.SwinConfig.base(), depths=depths)
+    assert (tcfg.embed_dim, tcfg.num_heads, tcfg.window_size) == (
+        128, (4, 8, 16, 32), 12)
+    x = np.random.default_rng(2).standard_normal((1, 192, 192, 3)).astype(
+        np.float32)
+    jswin_b = jswin.SwinTransformer(jcfg)
+    swin_vars = jax.jit(jswin_b.init)(jax.random.PRNGKey(3), jnp.asarray(x))
+    ref = jswin_b.apply(swin_vars, jnp.asarray(x))
+    # the whole model's converter, with Swin-B in the backbone's place
+    sd = tconvert.state_dict_from_jax_params(
+        {"params": {**variables["params"], "backbone": swin_vars["params"]}},
+        dataclasses.replace(model.cfg, swin=tcfg))
+    prefix = "model.backbone.conv_encoder.model."
+    port = tswin.SwinTransformer(tcfg, image_hw=(192, 192))
+    port.load_state_dict({k[len(prefix):]: torch.as_tensor(np.asarray(v))
+                          for k, v in sd.items() if k.startswith(prefix)},
+                         strict=True)
+    with torch.no_grad():
+        out = port(_t(x))
+    assert [tuple(o.shape) for o in out] == [(1, 24, 24, 256),
+                                             (1, 12, 12, 512),
+                                             (1, 6, 6, 1024)]
     assert len(out) == len(ref) == 3
     for o, r in zip(out, ref):
         _close(o, r)
