@@ -26,6 +26,7 @@ import random
 import numpy as np
 
 from sola_torch import config as config_lib
+from sola_torch.utils import profiling
 
 
 def set_seed(seed: int) -> None:
@@ -63,6 +64,7 @@ def init_distributed(argv=None) -> list:
     return rest
 
 
+@profiling.device_trace()
 def main(argv=None) -> None:
     from sola_torch.device import resolve_device
     from sola_torch.parallel.distributed import rank_device

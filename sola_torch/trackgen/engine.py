@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from sola_torch.core import mask_ops
+from sola_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -71,7 +72,7 @@ def _batched_dedup_ious(masklet_small, prompts: list,
         masklet_small.device)
     idx = torch.tensor([p.frame_idx for p in prompts],
                        device=masklet_small.device)
-    return mask_ops.mask_iou(masklet_small[idx], masks).cpu().numpy()
+    return profiling.fetch(mask_ops.mask_iou(masklet_small[idx], masks))
 
 
 def select_batch(prompts: Sequence[PromptMask], *, limit: int,
@@ -100,6 +101,7 @@ def select_batch(prompts: Sequence[PromptMask], *, limit: int,
     return batch, frame_idx
 
 
+@profiling.spanned("trackgen.dedup")
 def finalize_batch(batch: Sequence[PromptMask], masklets: dict,
                    tokens_by_frame: dict, n_frames: int,
                    small_masklets: Optional[dict] = None) -> list:
@@ -138,17 +140,18 @@ def dedup_and_emit(results: Sequence[TrackResult],
     per track) and emit the track; returns newly-filtered count."""
     n_filtered = 0
     for result in results:
-        small_hw = result.masklet_small.shape[1:]
-        remaining = [p for p in prompts if p.status == 0]
-        if remaining:
-            ious = _batched_dedup_ious(result.masklet_small, remaining,
-                                       small_hw)
-            for p, iou in zip(remaining, ious):
-                if iou > miou_thresh:
-                    p.status = 2
-                    p.filtered_by = result.prompt_id
-                    p.filtered_iou = float(iou)
-                    n_filtered += 1
+        with profiling.span("trackgen.dedup"):
+            small_hw = result.masklet_small.shape[1:]
+            remaining = [p for p in prompts if p.status == 0]
+            if remaining:
+                ious = _batched_dedup_ious(result.masklet_small, remaining,
+                                           small_hw)
+                for p, iou in zip(remaining, ious):
+                    if iou > miou_thresh:
+                        p.status = 2
+                        p.filtered_by = result.prompt_id
+                        p.filtered_iou = float(iou)
+                        n_filtered += 1
         if on_track is not None:
             on_track(result)
     return n_filtered
@@ -174,6 +177,7 @@ def census_dict(prompts: Sequence[PromptMask], *, elapsed: float,
     }
 
 
+@profiling.spanned("trackgen.track")
 def generate_tracks(
     predictor,
     state,

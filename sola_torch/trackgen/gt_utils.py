@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 
 from sola_torch.core import mask_ops, rle
+from sola_torch.utils import profiling
 
 
 def get_masklet(anno_id, mask_dict: dict) -> np.ndarray:
@@ -23,6 +24,7 @@ def get_masklet(anno_id, mask_dict: dict) -> np.ndarray:
     return rle.decode_masklet(mask_dict[str(anno_id)]).astype(np.float32)
 
 
+@profiling.spanned("trackgen.gt_masks")
 def get_masklets(video_id: str, meta: dict, mask_dict: dict) -> dict:
     """All GT masklets referenced by a MeViS video's expressions."""
     out = {}
@@ -33,6 +35,7 @@ def get_masklets(video_id: str, meta: dict, mask_dict: dict) -> dict:
     return out
 
 
+@profiling.spanned("trackgen.gt_masks")
 def get_masklets_ytbvos(masklet_dir: str, reshape: bool = False) -> dict:
     """Palette-PNG annotations -> {obj_id_str: (T, H, W) float}; empty
     objects dropped (seg_utils.py:29-49)."""

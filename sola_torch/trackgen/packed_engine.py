@@ -27,6 +27,7 @@ from sola_torch.core.mask_ops import resize_nearest_np
 from sola_torch.trackgen import engine
 from sola_torch.trackgen.sam2.packed import (PackedFeatures, PackedPropagator,
                                              SlotPlan)
+from sola_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -63,6 +64,7 @@ def _census(j: VideoJob) -> dict:
         batch_size=j.batch_size)
 
 
+@profiling.spanned("trackgen.track")
 def generate_tracks_packed(predictor, jobs: Sequence[VideoJob],
                            log: Callable[[str], None] = lambda s: None
                            ) -> list:
@@ -168,6 +170,7 @@ def generate_tracks_packed(predictor, jobs: Sequence[VideoJob],
     return [j.census for j in jobs]
 
 
+@profiling.spanned("trackgen.cond")
 def _resize_prompt(mask: np.ndarray, size: int) -> np.ndarray:
     """Full-res prompt -> (size, size) binary, as
     ``SAM2VideoPredictor.add_new_mask`` does it."""

@@ -36,6 +36,7 @@ from sola_torch.core import mask_ops
 from sola_torch.trackgen.sam2.common import sine_position_encoding
 from sola_torch.trackgen.sam2.video import (Banks, InferenceState,
                                             SAM2VideoPredictor)
+from sola_torch.utils import profiling
 
 _FAR = -10 ** 6      # frame index of an empty bank slot (video.py's)
 _OUTPUT_ROWS = 64    # tracked (frame, slot) masks resized per call
@@ -127,6 +128,7 @@ class PackedPropagator:
         return [feats[k][gidx].to(self.cdt) for k in ("pix", "s0", "s1")]
 
     @torch.no_grad()
+    @profiling.spanned("trackgen.cond")
     def cond_init(self, feats: dict, gidx: torch.Tensor,
                   masks: torch.Tensor, cond: np.ndarray):
         """Consolidate each slot's conditioning frame: mask-as-output on
@@ -150,6 +152,7 @@ class PackedPropagator:
         return banks, out["obj_ptr"]
 
     @torch.no_grad()
+    @profiling.spanned("trackgen.step")
     def step(self, feats: dict, banks: Banks, seed_buf: torch.Tensor,
              x: dict, reverse: bool):
         """One tracked step of every slot, each on its own frame
@@ -287,6 +290,7 @@ class PackedPropagator:
                 else stacked[i] for i, k in enumerate(host)}
 
     @torch.no_grad()
+    @profiling.spanned("trackgen.round")
     def run_round(self, pack: PackedFeatures, plan: SlotPlan,
                   cond_masks: np.ndarray, collect: bool = True) -> dict:
         """One packed round: consolidate conditioning frames, propagate
@@ -323,10 +327,13 @@ class PackedPropagator:
             if sched is None:
                 continue
             dev_sched = self._device_schedule(sched, cond)
+            n_on = sched.active.sum(axis=1)
             for t in range(sched.gidx.shape[0]):
                 lo, ptr = self.step(pack.feats, banks, seed_buf,
                                     {k: v[t] for k, v in dev_sched.items()},
                                     reverse)
+                profiling.count("trackgen.slots", b)
+                profiling.count("trackgen.slots_active", int(n_on[t]))
                 if collect:
                     sched.lows.append(lo)
                     sched.ptrs.append(ptr)
@@ -348,11 +355,11 @@ class PackedPropagator:
         tokens = {s: {} for s in slots_on}
         small_rows = {s: {} for s in slots_on}
 
-        cond_np = cond_ptr.float().cpu().numpy()
+        cond_np = profiling.fetch(cond_ptr.float())
         for s in slots_on:
             tokens[s][int(plan.cond[s])] = cond_np[s]
         for sched in passes.values():
-            ptr_np = torch.stack(sched.ptrs).float().cpu().numpy()
+            ptr_np = profiling.fetch(torch.stack(sched.ptrs).float())
             for t, s in zip(*np.nonzero(sched.active)):
                 tokens[s][int(sched.fidx[t, s])] = ptr_np[t, s]
 

@@ -35,6 +35,7 @@ from sola_torch.core.mask_ops import resize_bilinear
 from sola_torch.trackgen.sam2.common import sine_position_encoding
 from sola_torch.trackgen.sam2.image_encoder import normalize_image
 from sola_torch.trackgen.sam2.model import SAM2Config, SAM2Model
+from sola_torch.utils import profiling
 
 _FAR = -10 ** 6  # frame index of an empty bank slot
 _OUTPUT_CHUNK = 16  # frames resized to video resolution per call
@@ -123,13 +124,15 @@ class SAM2VideoPredictor:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
+    @profiling.spanned("trackgen.encode")
     def init_state(self, frames: Optional[Sequence[np.ndarray]],
                    video_path: Optional[str] = None) -> InferenceState:
         """frames: list of (H, W, 3) uint8 arrays, or ``video_path`` to a
         JPEG directory. Encodes every frame once into stacked device
         features shared by all propagation passes."""
         if video_path is not None:
-            frames = _load_frames(video_path)
+            with profiling.span("trackgen.decode"):
+                frames = _load_frames(video_path)
         orig_hw = tuple(frames[0].shape[:2])
         t = len(frames)
         parts: dict = {"pix": [], "s0": [], "s1": []}
@@ -157,6 +160,7 @@ class SAM2VideoPredictor:
         state.small_parts = None
         state.cond_host = {}
 
+    @profiling.spanned("trackgen.cond")
     def add_new_mask(self, state: InferenceState, frame_idx: int,
                      obj_id: int, mask: np.ndarray):
         """Register a mask prompt; returns (frame_idx, obj_ids, mask_logits)
@@ -223,6 +227,7 @@ class SAM2VideoPredictor:
                 for k in ("pix", "s0", "s1")]
 
     @torch.no_grad()
+    @profiling.spanned("trackgen.cond")
     def _run_cond_frames(self, state: InferenceState) -> None:
         """Consolidate every prompted frame into a conditioning slot:
         mask-as-output, memory encode and the bank writes."""
@@ -244,6 +249,7 @@ class SAM2VideoPredictor:
         state.banks = banks
 
     @torch.no_grad()
+    @profiling.spanned("trackgen.step")
     def _track_frame(self, state: InferenceState, banks: Banks,
                      seed_buf: torch.Tensor, cond_min: int, frame_idx: int,
                      reverse: bool):
@@ -327,7 +333,7 @@ class SAM2VideoPredictor:
         > 0.5, the reshape_masklet rule)."""
         m = resize_bilinear(lo.float(), hw) > 0.0
         small = resize_bilinear(m.float(), small_hw) > 0.5
-        return m.to(torch.uint8).cpu().numpy(), small
+        return profiling.fetch(m.to(torch.uint8)), small
 
     @torch.no_grad()
     def propagate_in_video(self, state: InferenceState,
@@ -379,7 +385,7 @@ class SAM2VideoPredictor:
             if cached is None:
                 lo = (self._prompt_masks(state, cond_idx)[:n_obj].float()
                       * 20.0 - 10.0)
-                cached = resize_bilinear(lo, (oh, ow)).cpu().numpy()
+                cached = profiling.fetch(resize_bilinear(lo, (oh, ow)))
                 state.cond_host[(cond_idx, "logits")] = cached
             yield cond_idx, list(state.obj_ids), cached[:, None]
         if not frame_idxs:
@@ -392,9 +398,12 @@ class SAM2VideoPredictor:
         seed_buf = torch.zeros((r, self.obj_batch, h, h, cfg.mem_dim),
                                dtype=self.compute_dtype, device=self.device)
         lows, ptrs = [], []
+        n_on = min(n_obj, self.obj_batch)
         for fidx in frame_idxs:
             lo, ptr = self._track_frame(state, banks, seed_buf, cond_idx,
                                         fidx, reverse)
+            profiling.count("trackgen.slots", self.obj_batch)
+            profiling.count("trackgen.slots_active", n_on)
             lows.append(lo)
             ptrs.append(ptr)
         if not reverse:
@@ -409,7 +418,7 @@ class SAM2VideoPredictor:
             for fidx in frame_idxs:
                 yield fidx, list(state.obj_ids), None
             return
-        toks = torch.stack(ptrs, dim=0).float().cpu().numpy()
+        toks = profiling.fetch(torch.stack(ptrs, dim=0).float())
         low_res = torch.stack(lows, dim=0)[:, :n_obj]
         for s in range(0, len(frame_idxs), _OUTPUT_CHUNK):
             e = min(s + _OUTPUT_CHUNK, len(frame_idxs))
@@ -450,7 +459,7 @@ class SAM2VideoPredictor:
         out = {}
         for f, tok in state.output_tokens.items():
             if torch.is_tensor(tok):
-                tok = tok.float().cpu().numpy()
+                tok = profiling.fetch(tok.float())
             out[f] = np.asarray(tok)[:n_obj].astype(np.float32)
         return out
 

@@ -27,6 +27,7 @@ from sola_torch.data import meta as meta_lib
 from sola_torch.data import tracks as tracks_lib
 from sola_torch.trackgen import engine, gt_utils
 from sola_torch.trackgen.prefetch import StatePrefetcher
+from sola_torch.utils import profiling
 
 DATA_DIR_DICT = {
     "mevis": "datasets/mevis",
@@ -77,8 +78,9 @@ def run_video(predictor, video_id: str, frames_dir: str, prompt_path: str,
         n_frames = state.num_frames
     else:
         raise ValueError("need frames_dir or a pre-initialized state")
-    prompts, _ = load_prompt_masks(prompt_path, video_id, bin_size)
-    n_not_used = engine.mark_not_used(prompts, bin_size)
+    with profiling.span("trackgen.track"):
+        prompts, _ = load_prompt_masks(prompt_path, video_id, bin_size)
+        n_not_used = engine.mark_not_used(prompts, bin_size)
     if state is None:
         state = predictor.init_state(None, video_path=frames_dir)
 
@@ -102,6 +104,7 @@ def run_video(predictor, video_id: str, frames_dir: str, prompt_path: str,
 
 def _make_on_track(track_root, output_dir_name, dataset, data_type,
                    video_id, gt_masklets):
+    @profiling.spanned("trackgen.emit")
     def on_track(result: engine.TrackResult) -> None:
         metrics = None
         if gt_masklets is not None:
@@ -135,8 +138,9 @@ def run_videos_packed(predictor, video_ids, frames_dirs, prompt_paths,
     n_not_used = {}
     for video_id, frames_dir, prompt_path in zip(video_ids, frames_dirs,
                                                  prompt_paths):
-        prompts, _ = load_prompt_masks(prompt_path, video_id, bin_size)
-        n_not_used[video_id] = engine.mark_not_used(prompts, bin_size)
+        with profiling.span("trackgen.track"):
+            prompts, _ = load_prompt_masks(prompt_path, video_id, bin_size)
+            n_not_used[video_id] = engine.mark_not_used(prompts, bin_size)
         state = (states or {}).get(video_id)
         if state is None:
             state = predictor.init_state(None, video_path=frames_dir)
@@ -160,6 +164,7 @@ def run_videos_packed(predictor, video_ids, frames_dirs, prompt_paths,
     return out
 
 
+@profiling.device_trace()
 def main(argv=None, predictor_factory=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--dataset", type=str, default="mevis")

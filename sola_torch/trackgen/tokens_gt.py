@@ -28,6 +28,7 @@ from sola_torch.data import tracks as tracks_lib
 from sola_torch.trackgen import gt_utils
 from sola_torch.trackgen.prefetch import StatePrefetcher
 from sola_torch.trackgen.tokens_grid import DATA_DIR_DICT
+from sola_torch.utils import profiling
 
 
 def run_gt_seed(predictor, state, seed: dict, n_frames: int) -> dict:
@@ -71,6 +72,7 @@ def gt_seed_units(gt_masklets: dict) -> list:
     return units
 
 
+@profiling.spanned("trackgen.emit")
 def _save(track_root, output_dir_name, dataset, data_type, video_id,
           out_id, out, gt_masklets, save_prec_rec_iou) -> None:
     metrics = None
@@ -91,6 +93,7 @@ def _entry(elapsed, n_frames, gt_anno_id, seed) -> dict:
             "seed_frame": int(seed["frame_idx"])}
 
 
+@profiling.spanned("trackgen.track")
 def run_video(predictor, state, video_id: str, gt_masklets: dict,
               n_frames: int, track_root: str, dataset: str, data_type: str,
               *, save_prec_rec_iou: bool = False,
@@ -109,6 +112,7 @@ def run_video(predictor, state, video_id: str, gt_masklets: dict,
     return census
 
 
+@profiling.spanned("trackgen.track")
 def run_videos_packed_gt(predictor, items, track_root: str, dataset: str,
                          data_type: str, *, save_prec_rec_iou: bool = False,
                          output_dir_name: str = "gt_tracks",
@@ -180,6 +184,7 @@ def run_videos_packed_gt(predictor, items, track_root: str, dataset: str,
     return censuses
 
 
+@profiling.device_trace()
 def main(argv=None, predictor_factory=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--dataset", type=str, default="mevis",

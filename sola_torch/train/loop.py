@@ -60,8 +60,10 @@ from sola_torch.parallel.mesh import (make_mesh, reduce_sum, shard_batch,
 from sola_torch.train import loss as loss_lib
 from sola_torch.train import state as state_lib
 from sola_torch.train.schedule import ReduceLROnPlateau
+from sola_torch.utils import profiling
 
 
+@profiling.spanned("train.prepare")
 def prepare_batch(batch: dict, text_encoder, train_cfg: Optional[dict],
                   device, token_cache=None) -> dict:
     """A collated batch's tensors on ``device``: object tokens (from the
@@ -124,6 +126,7 @@ def _losses(model: SelectionModel, batch: dict, train_cfg: dict,
     return score_logits, loss, parts
 
 
+@profiling.spanned("train.step")
 def train_step(model: SelectionModel, optimizer: state_lib.Optimizer,
                batch: dict, train_cfg: dict,
                generator: torch.Generator, mesh=None) -> dict:
@@ -135,10 +138,14 @@ def train_step(model: SelectionModel, optimizer: state_lib.Optimizer,
     data_group = mesh.data_group if mesh is not None else None
     model.train()
     optimizer.zero_grad()
-    _, loss, parts = _losses(model, batch, train_cfg, generator, data_group)
-    loss.backward()
-    sum_gradients(optimizer.params, data_group)
-    norm = optimizer.step()
+    with profiling.span("train.forward"):
+        _, loss, parts = _losses(model, batch, train_cfg, generator,
+                                 data_group)
+    with profiling.span("train.backward"):
+        loss.backward()
+        sum_gradients(optimizer.params, data_group)
+    with profiling.span("train.optimizer"):
+        norm = optimizer.step()
     return {**{k: v.detach() for k, v in parts.items()},
             "total_grad_norm": norm}
 
