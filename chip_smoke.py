@@ -56,7 +56,9 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    object2lang_attn; fp32, full width, the path's masks), a bf16 check
    shape and three backward check shapes (keys spanning several chunks,
    D 256 in bf16, a batch entry with no valid key): the forward at dropout
-   0 and 0.1, the fused backward (dQ, dK, dV) without and with dropout,
+   0 and 0.1, the fused backward (dQ, dK, dV) without and with dropout
+   (the kernels read the seed from a slot inside a buffer of seeds, as a
+   replayed training step gives it),
    masked keys' gradients exactly zero; shows the limits reject three
    wrong backward results; times each kernel (by call and alone), its
    plain version, a library yardstick and the bound.
@@ -64,9 +66,12 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    (SelectionConfig defaults with the Pallas attention route, a seeded
    random RoBERTa-large, configs/mevis/default.yaml's train values) on a
    synthetic corpus at bench.py's train shapes, 2 epochs: checks log.txt,
-   that both checkpoints load strictly and the weights moved, and the
-   two kernels' launches at each call site; warm steps/s, pairs/s, peak
-   memory and one profiled step.
+   that both checkpoints load strictly and the weights moved, the two
+   kernels' records in a device trace of the run (training steps replay
+   CUDA graphs, which no wrapper sees; CUPTI records their kernels), and
+   the wrappers' calls at each call site (a shape's warm-up and capture,
+   each validation batch); warm steps/s, pairs/s, peak memory and one
+   profiled step.
 10. A small reference for training: a tiny config trained 2 epochs on the
    card and on the CPU; log.txt numbers within a tolerance and equal
    confusion counts; a third card run with dS planted without its -delta
@@ -123,8 +128,8 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    flash route, dropout 0.2 and attention dropout 0.1 on a cut phase-9
    corpus (8 train videos, 2 valid, phase 9's batch shapes), 3 epochs,
    once unbroken and once SIGKILLed inside epoch 2 and resumed with
-   --resume (the resumed process counts the flash kernels' launches at
-   each call site). Epochs 2 and 3's weights and resume files must be
+   --resume (the resumed process counts the flash kernels' records in a
+   device trace, and the wrappers' calls at each call site). Epochs 2 and 3's weights and resume files must be
    torch.equal to the unbroken run's and log.txt equal; a resume from an
    epoch_1.pth with one weight moved by one ulp must end elsewhere; one
    train and one validation step under
@@ -132,6 +137,16 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    3-step runs must be equal with deterministic cuDNN (how many tensors
    differ with its default algorithms is reported), and the warm train
    step is timed with either.
+17. The training step from CUDA graphs (``sola_torch/train/graphs.py``) at
+   full width (fp32, flash route, dropout 0.2 and 0.1, 96 words): for
+   each of the select_mevis.train_b1 mix's 12 padded shapes (8-64 tracks
+   x 32-128 frames), 4 eager steps against 4 captured and replayed ones
+   from the same weights, AdamW moments and generator seed: losses,
+   gradient norms, the gradients as AdamW took them, weights, both
+   moments and the host generator equal bit for bit; a learning rate
+   changed between replays takes effect; each shape's capture time, the
+   eager and the replayed step's time, and the peak memory after all
+   captures.
 
 The second-to-last line is a JSON object listing every ported kernel; the
 line before it is the card's name and power limit; the last line is
@@ -927,6 +942,28 @@ def profile_forward(fn, kernels_of=(("deform", "ms_deform"),)) -> dict:
     return out
 
 
+def device_kernel_counts(fn, parts=(("flash_attn_fwd", "flash_fwd_"),
+                                    ("flash_attn_bwd", "flash_bwd_"))):
+    """Run ``fn`` once under torch.profiler: (what it returns, for each
+    (label, name part) of ``parts`` the number of device kernel records
+    whose name holds that part, the port's counters over the run). CUPTI
+    records every kernel a CUDA graph replay runs, so these count the
+    launches of replayed training steps, which no wrapper sees."""
+    from torch.profiler import ProfilerActivity, profile
+    from sola_torch.utils import profiling
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    return (out, {label: sum(part in n for n in names)
+                  for label, part in parts}, counters)
+
+
 def gdino_breakdown(grounding, image_pred, frame) -> dict:
     """Where a binned frame's time goes, warm, at the path's shapes: the
     GroundingDINO forward over the 3 expressions (padded to 4), the SAM2
@@ -1693,7 +1730,8 @@ def bound(flops, nbytes, dtype) -> tuple:
 def check_flash_training_kernels(fa, gen) -> dict:
     """Forward at rates 0 and 0.1, and the fused backward without and with
     dropout, against the plain versions at the selection shapes and the
-    backward check shapes; the limits must reject three wrong backward
+    backward check shapes, the kernels reading the seed from a slot of a
+    buffer whose neighbours hold seed +- 1; the limits must reject three wrong backward
     results (the mask of seed + 1, dS without -delta, dV from the
     undropped P). Times each kernel (CUDA events over calls, and the
     backward alone by torch.profiler), its plain version, its bound and a
@@ -1702,6 +1740,8 @@ def check_flash_training_kernels(fa, gen) -> dict:
     forward)."""
     import torch.nn.functional as F
     rows = []
+    seeds = torch.tensor([SEL_SEED + 1, SEL_SEED, SEL_SEED - 1],
+                         dtype=torch.int64, device="cuda")
     for name, site, dtype, b, h, lq, lk, d, mask in backward_cases(gen):
         q, k, v, do = (torch.randn(b, h, n, d, generator=gen).cuda().to(dtype)
                        for n in (lq, lk, lk, lq))
@@ -1713,10 +1753,12 @@ def check_flash_training_kernels(fa, gen) -> dict:
                         "key_slots_a_head": kh, "dq_workspace": lk > kh}}
         for rate in (0.0, SEL_RATE):
             seed = SEL_SEED if rate else None
+            # the kernels read it from a slot inside a buffer of seeds
+            slot = seeds[1:2] if rate else None
             tag = "drop" if rate else "nodrop"
-            out, lse = fa._launch(q, k, v, mask, rate, seed)
+            out, lse = fa._launch(q, k, v, mask, rate, slot)
             delta = fa.bwd_delta(out, do)
-            args = (q, k, v, mask, do, lse, delta, rate, seed)
+            args = (q, k, v, mask, do, lse, delta, rate, slot)
             dq, dk, dv = fa._launch_bwd_kernel(*args)
             torch.cuda.synchronize()
             ref, ref_lse = fa.attention_reference(q, k, v, mask, rate, seed)
@@ -1768,7 +1810,7 @@ def check_flash_training_kernels(fa, gen) -> dict:
             row["wrong_rejected_by"][what] = [c[0] for c in caught]
         # times at the training forward's rate
         attn_mask = None if mask is None else mask[:, None, None, :]
-        fwd_ms = cuda_ms(lambda: fa._launch(q, k, v, mask, rate, seed), 20)
+        fwd_ms = cuda_ms(lambda: fa._launch(q, k, v, mask, rate, slot), 20)
         fwd_nodrop_ms = cuda_ms(lambda: fa._launch(q, k, v, mask), 20)
         bwd_ms = cuda_ms(lambda: fa._launch_bwd_kernel(*args), 20)
         bwd_device_ms, bwd_records = profiled_ms(
@@ -1850,6 +1892,9 @@ ATTN_SITES = ("obj_attn", "motion_attn", "object2lang_attn")
 # 36 distractors, bucket 64), 64 frames, batch 8; 4 validation videos
 TRAIN_VIDEOS, VALID_VIDEOS, OBJECTS, DISTRACTORS, FRAMES, BATCH = (
     16, 4, 4, 36, 64, 8)
+# the padded shapes of phases 9 and 16's corpora: every batch is 64 track
+# slots x 64 frames x 96 words
+TRAIN_SHAPES = 1
 
 
 class TrainSiteCounter:
@@ -1881,6 +1926,22 @@ class TrainSiteCounter:
 
     def _add_bwd(self, site: str) -> None:
         self.counts[site]["bwd"] += self.fa.bwd_launches - self._bwd.pop()
+
+
+def graph_launches(n_layers: int, steps: int, shapes: int,
+                   valid_batches: int) -> tuple:
+    """What a ``train()`` run on the card launches: (flash kernel records
+    on the device, wrapper calls at each site). Every training step
+    replays its shape's graphs, and a shape's first step also runs its
+    forward and backward once eagerly (the warm-up) before the capture,
+    whose calls launch nothing; validation runs eagerly. Each layer calls
+    each of its 3 sites once a forward and once a backward."""
+    kernels = {"flash_attn_fwd": 3 * n_layers * (steps + shapes
+                                                 + valid_batches),
+               "flash_attn_bwd": 3 * n_layers * (steps + shapes)}
+    calls = {"fwd": n_layers * (2 * shapes + valid_batches),
+             "bwd": n_layers * 2 * shapes}
+    return kernels, calls
 
 
 def selection_corpus(root: str, n_train: int, n_valid: int, n_frames: int,
@@ -1959,14 +2020,14 @@ def run_selection_training(fa) -> dict:
     loop.build_model = build_and_watch
     try:
         t0 = time.perf_counter()
-        model = loop.train(configs, text_encoder=text, log_fn=log,
-                           device="cuda")
-        torch.cuda.synchronize()
+        model, launches, counters = device_kernel_counts(
+            lambda: loop.train(configs, text_encoder=text, log_fn=log,
+                               device="cuda"))
         train_s = time.perf_counter() - t0
     finally:
         loop.build_model = build_model
-    launches = {"flash_attn_fwd": fa.launches,
-                "flash_attn_bwd": fa.bwd_launches}  # read right after
+    calls = {"flash_attn_fwd": fa.launches,
+             "flash_attn_bwd": fa.bwd_launches}  # read right after
     by_site = copy.deepcopy(sites.counts)  # the timed steps below add on
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1987,13 +2048,16 @@ def run_selection_training(fa) -> dict:
         raise AssertionError(f"parameters that did not move: {still}")
     steps = (TRAIN_VIDEOS * OBJECTS // BATCH) * 2
     valid_batches = (VALID_VIDEOS * OBJECTS // BATCH) * 2
-    want = {"fwd": cfg.n_layers * (steps + valid_batches),
-            "bwd": cfg.n_layers * steps}
-    if (any(by_site[s] != want for s in ATTN_SITES)
-            or launches["flash_attn_fwd"] != 3 * want["fwd"]
-            or launches["flash_attn_bwd"] != 3 * want["bwd"]):
-        raise AssertionError(f"kernel launches by site {by_site} "
-                             f"(want {want} each), totals {launches}")
+    want, want_calls = graph_launches(cfg.n_layers, steps, TRAIN_SHAPES,
+                                      valid_batches)
+    if (launches != want or any(by_site[s] != want_calls for s in ATTN_SITES)
+            or calls != {k: 3 * want_calls[k[-3:]] for k in calls}
+            or counters.get("train.steps") != steps
+            or counters.get("train.graph_captures") != TRAIN_SHAPES):
+        raise AssertionError(f"flash kernels on the device {launches} (want "
+                             f"{want}); wrapper calls by site {by_site} "
+                             f"(want {want_calls} each), totals {calls}; "
+                             f"counters {counters}")
 
     # warm steps on one batch of the path's shape, then one profiled step
     raw = next(iter(get_loader_dict(configs["dataset"])["train"]))
@@ -2008,7 +2072,8 @@ def run_selection_training(fa) -> dict:
         ("flash_bwd", "flash_bwd_")))
     row = {"config": dataclasses.asdict(cfg), "corpus_s": corpus_s,
            "text_encoder_s": text_s, "train_s": train_s, "steps": steps,
-           "launches": launches, "launches_by_site": by_site,
+           "counters": counters, "launches": launches,
+           "wrapper_calls": calls, "calls_by_site": by_site,
            "peak_memory_gb": peak_gb, "warm_step_ms": step_ms,
            "steps_per_s": 1e3 / step_ms,
            "pairs_per_s": BATCH * 1e3 / step_ms, "log": floats,
@@ -2016,8 +2081,10 @@ def run_selection_training(fa) -> dict:
     log(f"  train(): 2 epochs, {steps} steps + {valid_batches} validation "
         f"batches in {train_s:.2f} s (data loading, text encodes and "
         f"checkpoints included); log {floats[:4]}..., TP/FP/FN/TN "
-        f"{counts[-4:]}; launches {launches}, by site {by_site}; "
-        f"peak memory {peak_gb:.2f} GB; card {smi_line()}")
+        f"{counts[-4:]}; {counters.get('train.graph_captures')} graph "
+        f"captures; flash kernels on the device {launches}; wrapper calls "
+        f"(warm-ups, captures, validation) by site {by_site}; peak memory "
+        f"{peak_gb:.2f} GB; card {smi_line()}")
     log(f"  warm train step (batch {BATCH}, 64 track slots x 64 frames): "
         f"{step_ms:.2f} ms = {row['steps_per_s']:.2f} steps/s = "
         f"{row['pairs_per_s']:.2f} (video, expression) pairs/s; one "
@@ -2085,17 +2152,26 @@ def run_selection_small_reference(fa) -> dict:
         if name == "cuda_ds_without_delta":
             fa.bwd_delta = lambda out, do: torch.zeros_like(
                 honest_delta(out, do))
-        try:
+
+        def run():
             train(configs, text_encoder=HashTextEncoder(
                 hidden_size=64, vocab_size=128, device=device),
                 log_fn=lambda *a: None, device=device)
             _sync(device)
+
+        try:
+            if device == "cuda":  # replayed steps: count device records
+                _, kernels, _ = device_kernel_counts(run)
+                launched = (kernels["flash_attn_fwd"],
+                            kernels["flash_attn_bwd"])
+            else:
+                run()
+                launched = tuple(a - b for a, b in zip(
+                    (fa.launches, fa.bwd_launches), before))
         finally:
             fa.bwd_delta = honest_delta
         runs[name] = parse_train_log(os.path.join(
-            root, name, "small", "mevis", "log.txt")) + (
-            tuple(a - b for a, b in zip((fa.launches, fa.bwd_launches),
-                                        before)),)
+            root, name, "small", "mevis", "log.txt")) + (launched,)
 
     def log_err(a, b):
         return (float(np.abs(np.subtract(a[0], b[0])).max())
@@ -4055,11 +4131,12 @@ def resumed_train(workdir: str, name: str) -> dict:
     torch.cuda.synchronize()
     fa.launches = fa.bwd_launches = 0
     t0 = time.perf_counter()
-    train_cli.main(argv)
-    torch.cuda.synchronize()
-    return {"launches": {"flash_attn_fwd": fa.launches,
-                         "flash_attn_bwd": fa.bwd_launches},  # read right after
-            "launches_by_site": sites.sites(),
+    _, launches, counters = device_kernel_counts(
+        lambda: train_cli.main(argv))
+    return {"launches": launches,
+            "wrapper_calls": {"flash_attn_fwd": fa.launches,
+                              "flash_attn_bwd": fa.bwd_launches},
+            "calls_by_site": sites.sites(), "counters": counters,
             "train_s": time.perf_counter() - t0}
 
 
@@ -4344,22 +4421,25 @@ def kill_and_resume(fa, root: str, started: list) -> dict:
     fault_max = max((want_w[k] - fault_w[k]).abs().max().item()
                     for k in want_w)
     epochs = RESUME_EPOCHS - landed
-    steps = RESUME_TRAIN_VIDEOS * OBJECTS // BATCH
-    valid_batches = RESUME_VALID_VIDEOS * OBJECTS // BATCH
-    want = {"fwd": 2 * (steps + valid_batches) * epochs,
-            "bwd": 2 * steps * epochs}
-    by_site = resumed["launches_by_site"]
+    steps = RESUME_TRAIN_VIDEOS * OBJECTS // BATCH * epochs
+    valid_batches = RESUME_VALID_VIDEOS * OBJECTS // BATCH * epochs
+    want, want_calls = graph_launches(2, steps, TRAIN_SHAPES, valid_batches)
+    by_site = resumed["calls_by_site"]
     if (unequal or not logs_equal or fault_moved == 0
-            or len(by_site) != 3 or any(c != want for c in by_site.values())
-            or resumed["launches"]["flash_attn_fwd"] != 3 * want["fwd"]
-            or resumed["launches"]["flash_attn_bwd"] != 3 * want["bwd"]
+            or resumed["launches"] != want
+            or resumed["counters"].get("train.steps") != steps
+            or resumed["counters"].get("train.graph_captures")
+            != TRAIN_SHAPES
+            or len(by_site) != 3
+            or any(c != want_calls for c in by_site.values())
             or not check["deterministic_algorithms"] or not check["finite"]):
         raise AssertionError(
             f"kill and resume: files unequal to the unbroken run's "
             f"{unequal}, log.txt equal {logs_equal}; the one-ulp fault moved "
-            f"{fault_moved} tensors; resumed launches {resumed['launches']},"
-            f" by site {by_site} (want {want} each); deterministic check "
-            f"{check}")
+            f"{fault_moved} tensors; resumed run's flash kernels on the "
+            f"device {resumed['launches']} (want {want}), counters "
+            f"{resumed['counters']}, wrapper calls by site {by_site} (want "
+            f"{want_calls} each); deterministic check {check}")
     step = determinism_cost(configs)
     out = {"kill_s": kill_s, "kill_inside_epoch": RESUME_KILL_EPOCH,
            "newest_checkpoint_after_kill": landed,
@@ -4379,8 +4459,9 @@ def kill_and_resume(fa, root: str, started: list) -> dict:
         f"left {leftovers}); resumed run {resumed['train_s']:.2f} s in the "
         f"CLI: epochs {RESUME_KILL_EPOCH}-{RESUME_EPOCHS}' weights and "
         f"resume files torch.equal to the unbroken run's "
-        f"({len(out['compared_files'])} files), log.txt equal; launches "
-        f"{resumed['launches']}, by site {by_site}")
+        f"({len(out['compared_files'])} files), log.txt equal; flash "
+        f"kernels on the device {resumed['launches']}, wrapper calls by site "
+        f"{by_site}")
     log(f"  one ulp planted in epoch {landed}'s {planted}[0]: epoch "
         f"{RESUME_EPOCHS}'s weights differ in {fault_moved} tensors (max "
         f"{fault_max:.3g}); torch.use_deterministic_algorithms(True): a "
@@ -4396,6 +4477,161 @@ def kill_and_resume(fa, root: str, started: list) -> dict:
         f"{100 * step['cost']:+.2f}%); phase {out['phase_s']:.1f} s; card "
         f"{smi_line()}")
     return out
+
+# phase 17: the select_mevis.train_b1 mix's padded shapes (its track and
+# frame buckets; words pad to the text encoder's 96)
+GRAPH_TRACKS, GRAPH_FRAMES, GRAPH_WORDS, GRAPH_STEPS = (8, 16, 32, 64), (
+    32, 64, 128), 96, 4
+
+
+def graph_batch(nb: int, tb: int, cfg, gen) -> dict:
+    """A padded training batch of nb track slots and tb frame slots on the
+    card, as ``prepare_batch`` gives it: ragged valid tracks, frames and
+    words, labels from a 0.7 threshold."""
+    n = int(torch.randint(nb // 2 + 1, nb + 1, (1,), generator=gen))
+    t = int(torch.randint(tb // 2 + 1, tb + 1, (1,), generator=gen))
+    w = int(torch.randint(4, 15, (1,), generator=gen))
+    d = cfg.lang_token_dim
+    return {k: v.cuda() for k, v in {
+        "object_tokens": torch.randn(1, nb, tb, cfg.object_token_dim,
+                                     generator=gen),
+        "track_mask": (torch.arange(nb) < n)[None],
+        "frame_lengths": torch.tensor([t]),
+        "lang_tokens": torch.randn(1, GRAPH_WORDS, d, generator=gen),
+        "lang_mask": (torch.arange(GRAPH_WORDS) < w)[None],
+        "pos_tokens": torch.randn(1, 1, d, generator=gen),
+        "labels": (torch.rand(1, nb, generator=gen) > 0.7).float()}.items()}
+
+
+def train_state(optimizer) -> list:
+    """Copies of each parameter and its AdamW state."""
+    return [(p.detach().clone(), {k: v.clone() for k, v in
+                                  optimizer.adamw.state[p].items()})
+            for p in optimizer.params]
+
+
+def load_train_state(optimizer, state: list) -> None:
+    """Write a ``train_state`` back in place, so captured graphs keep
+    reading and writing the same tensors."""
+    with torch.no_grad():
+        for p, (w, st) in zip(optimizer.params, state):
+            p.copy_(w)
+            for k, v in st.items():
+                optimizer.adamw.state[p][k].copy_(v)
+
+
+def unequal_state(a, b) -> list:
+    """Where two optimizers' parameters, gradients as AdamW took them, and
+    moments differ at all."""
+    bad = []
+    for i, (p, q) in enumerate(zip(a.params, b.params)):
+        sa, sb = a.adamw.state[p], b.adamw.state[q]
+        for name, x, y in (("weight", p, q), ("grad", p.grad, q.grad),
+                           ("exp_avg", sa["exp_avg"], sb["exp_avg"]),
+                           ("exp_avg_sq", sa["exp_avg_sq"],
+                            sb["exp_avg_sq"]), ("step", sa["step"],
+                                                sb["step"])):
+            if not torch.equal(x, y):
+                bad.append(f"{name} {i}")
+    return bad
+
+
+def run_train_graphs() -> dict:
+    """Phase 17: eager against graph-replayed training steps at full width
+    over the train_b1 mix's 12 padded shapes."""
+    from sola_torch.models.selection import SelectionConfig
+    from sola_torch.train import graphs, loop
+    from sola_torch.train import state as state_lib
+    cfg = SelectionConfig(use_pallas_attention=True, dropout_p=0.2,
+                          attn_dropout_p=0.1)
+    train_cfg = {"temperature": 0.07, "positive_weight": 1.5,
+                 "alignment_weight": 0.3}
+    gen = torch.Generator().manual_seed(17)
+    shapes = [(nb, tb) for nb in GRAPH_TRACKS for tb in GRAPH_FRAMES]
+    batches = {s: [graph_batch(*s, cfg, gen) for _ in range(GRAPH_STEPS)]
+               for s in shapes}
+    runs = {}
+    for name in ("eager", "graph"):
+        model = loop.build_model(cfg, "cuda", seed=3)
+        runs[name] = (model, state_lib.make_optimizer(
+            model.parameters(), lr=5e-6, grad_clip_norm=1.0))
+    usable = graphs.usable
+
+    def step(name, batch, g):
+        model, opt = runs[name]
+        if name == "eager":
+            graphs.usable = lambda *_: False
+        try:
+            out = loop.train_step(model, opt, batch, train_cfg, g)
+        finally:
+            graphs.usable = usable
+        torch.cuda.synchronize()
+        return out
+
+    rows = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with loop.deterministic_cudnn():
+        # one eager step on each, alike: AdamW holds state from here on
+        warm = graph_batch(16, 32, cfg, gen)
+        for name in runs:
+            graphs.usable = lambda *_: False
+            try:
+                step(name, warm, torch.Generator().manual_seed(1))
+            finally:
+                graphs.usable = usable
+        start = train_state(runs["eager"][1])
+        for si, shape in enumerate(shapes):
+            for _, opt in runs.values():
+                load_train_state(opt, start)
+                state_lib.set_learning_rate(opt, 5e-6)
+            gens = {n: torch.Generator().manual_seed(100 + si) for n in runs}
+            row = {"shape": shape, "eager_ms": [], "graph_ms": [],
+                   "update_norms": []}
+            before = [p.detach().clone() for p in runs["graph"][1].params]
+            for i, batch in enumerate(batches[shape]):
+                if si == 0 and i == 2:  # between replays
+                    for _, opt in runs.values():
+                        state_lib.set_learning_rate(opt, 5e-5)
+                outs = {}
+                for name in runs:
+                    t0 = time.perf_counter()
+                    outs[name] = step(name, batch, gens[name])
+                    row[f"{name}_ms"].append(
+                        (time.perf_counter() - t0) * 1e3)
+                bad = [k for k in outs["eager"]
+                       if not torch.equal(outs["eager"][k], outs["graph"][k])]
+                bad += unequal_state(runs["eager"][1], runs["graph"][1])
+                if not torch.equal(gens["eager"].get_state(),
+                                   gens["graph"].get_state()):
+                    bad.append("host generator")
+                if bad:
+                    raise AssertionError(f"shape {shape} step {i}: eager and "
+                                         f"replayed steps differ in {bad}")
+                now = [p.detach().clone() for p in runs["graph"][1].params]
+                row["update_norms"].append(float(torch.linalg.vector_norm(
+                    torch.stack([torch.linalg.vector_norm(a - b)
+                                 for a, b in zip(now, before)]))))
+                before = now
+            row["capture_ms"] = row["graph_ms"][0]
+            rows.append(row)
+            log(f"  {shape[0]:>3} tracks x {shape[1]:>3} frames: equal over "
+                f"{GRAPH_STEPS} steps; capture step {row['capture_ms']:.1f} "
+                f"ms, eager {statistics.median(row['eager_ms'][1:]):.2f} ms, "
+                f"replayed {statistics.median(row['graph_ms'][1:]):.2f} ms")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    captured = len(runs["graph"][1].graphs.shapes)
+    ratio = rows[0]["update_norms"][2] / rows[0]["update_norms"][1]
+    if captured != len(shapes) or ratio < 3.0:
+        raise AssertionError(f"{captured} shapes captured of {len(shapes)}; "
+                             f"the lr x10 between replays moved the update "
+                             f"{ratio:.2f}x")
+    log(f"  lr x10 between replays: the update grew {ratio:.2f}x; "
+        f"{captured} shapes captured; peak memory {peak_gb:.2f} GB after "
+        f"all captures (both runs' models and moments); card {smi_line()}")
+    return {"shapes": rows,
+            "lr_change_update_ratio": ratio, "captured_shapes": captured,
+            "peak_memory_gb": peak_gb}
 
 
 def main() -> None:
@@ -4481,6 +4717,9 @@ def main() -> None:
         "dropout) through the train CLI: unbroken, SIGKILLed inside epoch "
         f"{RESUME_KILL_EPOCH} and resumed, bit for bit")
     resume = run_kill_and_resume(fa)
+    log("phase 17: the training step from CUDA graphs, eager against "
+        "replayed at the train_b1 mix's 12 padded shapes")
+    train_graphs = run_train_graphs()
 
     head = kernel["rows"][0]  # memory cross-attention: most of the time
     # the main path's shape: 3 expressions padded to 4, fp32 (CLI default)
@@ -4583,6 +4822,7 @@ def main() -> None:
                    "packed_paths": packed_paths,
                    "packed_small_reference": packed_small,
                    "distributed": distributed, "kill_and_resume": resume,
+                   "train_graphs": train_graphs,
                    "ptxas": ptxas}, f, indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items()

@@ -15,7 +15,8 @@
 // past Lk is excluded, a batch entry with no valid key lets every key take
 // part (each scoring -1e30), and the keep mask is the counter hash of
 // (seed, batch*head, global query, original key index), so the kernel
-// regenerates it from the seed whatever its tiles. A masked key gets P = 0
+// regenerates it from the seed whatever its tiles; the seed is read from
+// device memory, as the forward reads it. A masked key gets P = 0
 // exactly, so its dK and dV rows are exactly zero; they are written as
 // zeros without being computed.
 //
@@ -198,7 +199,8 @@ struct Params {
   int BH, H, Lq, Lk, D;
   int G, RH, KH;  // heads a block, rows a head in a tile, key slots a chunk
   float scale;
-  uint32_t seed, keep_thresh;
+  const int64_t* seed;  // device; its low 32 bits seed the hash
+  uint32_t keep_thresh;
   float inv_keep;
 };
 
@@ -349,7 +351,7 @@ flash_bwd_kernel(const Params p) {
   __shared__ uint32_t sBase[16];
   if (kDrop && tid < G) {
     Dropout d{0u, 0u, 0.0f};
-    d.for_head(p.seed, bh0 + tid);
+    d.for_head(static_cast<uint32_t>(*p.seed), bh0 + tid);
     sBase[tid] = d.base;
   }
 
@@ -627,26 +629,28 @@ extern "C" {
 // query tile and KH key slots of each head in a chunk, both multiples of
 // 4, with G * RH <= 64 and G * KH <= 64 (32 at D > 128). dq_ws is an fp32
 // (BH, Lq, D) workspace, needed when Lk > KH (the keys may span chunks),
-// else null. Dropout as in sola_flash_attn_fwd (inv_keep = 0: none).
+// else null. Dropout as in sola_flash_attn_fwd (inv_keep = 0: none, and
+// seed may be null).
 // Returns the cudaError_t of the launch (0 on success).
 int sola_flash_attn_bwd(const void* q, const void* k, const void* v,
                         const unsigned char* mask, const void* dout,
                         const float* lse, const float* delta, void* dq,
                         void* dk, void* dv, float* dq_ws, int BH, int H,
                         int Lq, int Lk, int D, int G, int RH, int KH,
-                        int dtype, float scale, unsigned int seed,
+                        int dtype, float scale, const void* seed,
                         unsigned int keep_thresh, float inv_keep,
                         void* stream) {
   const int keys = D <= 128 ? Tiling<128>::kKeys : Tiling<256>::kKeys;
   if (D <= 0 || D > 256 || D % 8 != 0 || Lq <= 0 || Lk <= 0 || BH <= 0 ||
       H <= 0 || BH % H != 0 || G <= 0 || H % G != 0 || RH <= 0 ||
       KH <= 0 || RH % 4 != 0 || KH % 8 != 0 || G * RH > kRows ||
-      G * KH > keys || (Lk > KH && dq_ws == nullptr)) {
+      G * KH > keys || (Lk > KH && dq_ws == nullptr) ||
+      (inv_keep > 0.0f && seed == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{q,  k,  v,  mask, dout, lse, delta, dq, dk, dv, dq_ws,
-                 BH, H,  Lq, Lk,   D,    G,   RH,    KH, scale, seed,
-                 keep_thresh, inv_keep};
+                 BH, H,  Lq, Lk,   D,    G,   RH,    KH, scale,
+                 static_cast<const int64_t*>(seed), keep_thresh, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = inv_keep > 0.0f;
   if (dtype == 0) {

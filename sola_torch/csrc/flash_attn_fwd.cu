@@ -10,7 +10,9 @@
 //
 // Dropout (training): with inv_keep > 0 the P that enters the PV product is
 // multiplied by keep x inv_keep, where keep is _keep_mask's counter hash of
-// (seed, batch*head, global query, global key) below keep_thresh; the row
+// (seed, batch*head, global query, global key) below keep_thresh. The seed
+// is read from device memory (the low 32 bits of an int64), so a captured
+// CUDA graph replays with whatever seed the caller wrote there; the row
 // sum l stays undropped (softmax first, then dropout on the probabilities,
 // torch SDPA's placement). The hash uses global indices, so the mask does
 // not depend on this kernel's tiles and the fused backward kernel
@@ -533,7 +535,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_v,
                        const unsigned char* __restrict__ mask,
                        bf16* __restrict__ out, float* __restrict__ lse, int H,
-                       int Lq, int Lk, int D, float scale, uint32_t seed,
+                       int Lq, int Lk, int D, float scale,
+                       const int64_t* __restrict__ seed,
                        uint32_t keep_thresh, float inv_keep) {
   using S = SmemA<DP>;
   constexpr int NC = S::kChunks;
@@ -597,7 +600,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread: row0, row0 + 8
   const bool active = q0 + cw * 64 < Lq;          // else only frees the ring
   Dropout drop{0u, keep_thresh, inv_keep};
-  if constexpr (kDrop) drop.for_head(seed, bh);
+  if constexpr (kDrop) drop.for_head(static_cast<uint32_t>(*seed), bh);
   const int ksteps = (D + 15) / 16;  // wgmma k-steps over D (zero-filled pad)
   const unsigned char* sq = smem + S::q + cw * 64 * 128;
 
@@ -773,7 +776,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const unsigned char* __restrict__ mask,
                       float* __restrict__ out, float* __restrict__ lse, int H,
-                      int Lq, int Lk, int D, float scale, uint32_t seed,
+                      int Lq, int Lk, int D, float scale,
+                      const int64_t* __restrict__ seed,
                       uint32_t keep_thresh, float inv_keep) {
   constexpr int ND = DMAX / 8;  // n-blocks of 8 columns
   extern __shared__ __align__(16) float smf[];
@@ -800,7 +804,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       lists + 2 * kMaxListedTiles,
       reinterpret_cast<int*>(lists + 3 * kMaxListedTiles));
   Dropout drop{0u, keep_thresh, inv_keep};
-  if constexpr (kDrop) drop.for_head(seed, bh);
+  if constexpr (kDrop) drop.for_head(static_cast<uint32_t>(*seed), bh);
 
   auto load_kv = [&](int i) {
     const int k0 = walk[i] * kKeyTile32;
@@ -1027,7 +1031,8 @@ struct Args {
   float* lse;
   int BH, H, Lq, Lk, D;
   float scale;
-  uint32_t seed, keep_thresh;
+  const int64_t* seed;
+  uint32_t keep_thresh;
   float inv_keep;
   cudaStream_t stream;
 };
@@ -1089,20 +1094,22 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. q (BH, Lq, D); k, v (BH, Lk, D);
 // mask (BH / H, Lk) bytes or null; out like q; lse (BH, Lq) float32.
 // Dropout: inv_keep = 1 / (1 - rate) and keep_thresh = round((1 - rate)
-// * 2^32) capped at 2^32 - 1; inv_keep = 0 (rate 0) means no dropout.
+// * 2^32) capped at 2^32 - 1; inv_keep = 0 (rate 0) means no dropout, and
+// then seed may be null. seed: device int64, its low 32 bits the hash's.
 // Returns the cudaError_t of the launch (0 on success).
 int sola_flash_attn_fwd(const void* q, const void* k, const void* v,
                         const unsigned char* mask, void* out, float* lse,
                         int BH, int H, int Lq, int Lk, int D, int dtype,
-                        float scale, unsigned int seed,
+                        float scale, const void* seed,
                         unsigned int keep_thresh, float inv_keep,
                         void* stream) {
   if (D <= 0 || D > 256 || D % 8 != 0 || Lq <= 0 || Lk <= 0 || BH <= 0 ||
-      H <= 0 || BH % H != 0 || (dtype != 0 && dtype != 1)) {
+      H <= 0 || BH % H != 0 || (dtype != 0 && dtype != 1) ||
+      (inv_keep > 0.0f && seed == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q,  k,  v,     mask, out,         lse,      BH, H,
-               Lq, Lk, D, scale, seed, keep_thresh, inv_keep,
+  const Args a{q,     k,  v,  mask, out, lse, BH, H, Lq, Lk, D, scale,
+               static_cast<const int64_t*>(seed), keep_thresh, inv_keep,
                static_cast<cudaStream_t>(stream)};
   return inv_keep > 0.0f ? launch<true>(a, dtype) : launch<false>(a, dtype);
 }

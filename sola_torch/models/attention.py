@@ -9,7 +9,8 @@ Two routes, as in the JAX package: ``use_pallas=False`` is the dense
 einsum path; ``use_pallas=True`` goes through ``fused_attention``, the
 hand-written CUDA forward and backward kernels (their plain versions on
 CPU tensors), with the probabilities' dropout inside the kernels, seeded
-once per call from the forward's explicit generator.
+once per call from the forward's ``DropoutRng`` (a view of its device
+buffer of draws).
 
 With a model ``group`` (``parallel/tp.py``) the layer holds this rank's
 share: q/k/v project to ``num_heads / group size`` local heads, the
@@ -57,6 +58,8 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout_p = dropout_p
         self.use_pallas = use_pallas
+        # a training forward seeds the kernels' dropout once a call
+        self.seeds_kernel = use_pallas and dropout_p > 0.0
         self.group = group if n > 1 else None
         local = embed_dim // n
         dense = WSDense if weight_standardization else nn.Linear

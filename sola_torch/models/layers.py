@@ -123,18 +123,47 @@ def downsampled_length(lengths: torch.Tensor, stride: int, kernel: int,
 
 class DropoutRng:
     """The random streams of one training forward, all drawn from one
-    explicit host ``torch.Generator``: per-call seeds of the attention
-    kernels' dropout hash come from it directly, and dropout masks from a
-    generator on ``device`` that one draw from it seeds."""
+    explicit host ``torch.Generator``, in this order: one draw seeds a
+    generator on the device, whose philox stream gives the dropout masks,
+    then one draw a call seeds an attention kernel's dropout hash.
 
-    def __init__(self, generator: torch.Generator, device):
-        self.host = generator
-        self.device = torch.Generator(device=device).manual_seed(
-            int(torch.randint(0, 2 ** 62, (1,), generator=generator)))
+    The draws sit in ``seeds``, an int64 (1 + n,) tensor on the device
+    (``draw``), and each kernel call reads its seed from there (``seed``
+    returns a view, no host sync); ``device`` is the mask generator,
+    seeded ``seeds[0]``. ``fresh`` makes both for an eager forward; a
+    captured forward keeps one buffer and one generator and the replaying
+    step rewrites and re-seeds them (``train/graphs.py``)."""
+
+    def __init__(self, seeds: torch.Tensor, device: torch.Generator):
+        self.seeds = seeds
+        self.device = device
+        self._calls = 0
+
+    @staticmethod
+    def draw(generator: torch.Generator, n_calls: int) -> torch.Tensor:
+        """The host int64 (1 + n_calls,) draws of one forward: the mask
+        generator's seed in [0, 2^62), then each call's in [0, 2^32)."""
+        draws = [torch.randint(0, 2 ** 62, (1,), generator=generator)]
+        draws += [torch.randint(0, 2 ** 32, (1,), generator=generator)
+                  for _ in range(n_calls)]
+        return torch.cat(draws)
+
+    @classmethod
+    def fresh(cls, generator: torch.Generator, device,
+              n_calls: int) -> "DropoutRng":
+        """An eager forward's streams: the draws copied to ``device`` at
+        once and a new mask generator there."""
+        draws = cls.draw(generator, n_calls)
+        mask_gen = torch.Generator(device=device).manual_seed(int(draws[0]))
+        return cls(draws.to(device, non_blocking=True), mask_gen)
 
     def seed(self) -> torch.Tensor:
-        """A (1,) int64 host tensor in [0, 2^32): one kernel call's seed."""
-        return torch.randint(0, 2 ** 32, (1,), generator=self.host)
+        """The next kernel call's seed: a (1,) int64 view of ``seeds``."""
+        self._calls += 1
+        if self._calls >= self.seeds.shape[0]:
+            raise RuntimeError(f"a forward drew {self._calls} kernel seeds, "
+                               f"{self.seeds.shape[0] - 1} were drawn")
+        return self.seeds[self._calls:self._calls + 1]
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """Keep with probability 1 - rate and scale kept values by

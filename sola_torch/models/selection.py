@@ -246,19 +246,23 @@ class SelectionModel(nn.Module):
                 frame_lengths: Optional[torch.Tensor] = None,
                 lang_mask: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                rng: Optional[DropoutRng] = None):
         """object_tokens (b, n, t, object_token_dim); lang_tokens (b, w,
         lang_token_dim); track_mask (b, n) bool; frame_lengths (b,) int;
         lang_mask (b, w) bool. ``deterministic=False`` turns dropout on,
-        drawn from ``generator`` (a host ``torch.Generator``, required
-        then). Returns (score logits (b, n), score tokens (b, n, d))."""
+        drawn from ``rng`` when given (its draws made already) or else from
+        ``generator`` (a host ``torch.Generator``, required then). Returns
+        (score logits (b, n), score tokens (b, n, d))."""
         cfg = self.cfg
         b, n = object_tokens.shape[:2]
-        rng = None
-        if not deterministic:
+        if deterministic:
+            rng = None
+        elif rng is None:
             if generator is None:
                 raise ValueError("a training forward needs a generator")
-            rng = DropoutRng(generator, object_tokens.device)
+            rng = DropoutRng.fresh(generator, object_tokens.device,
+                                   self.kernel_seed_calls())
 
         x, frame_mask = self.encode_motion(object_tokens, frame_lengths, rng)
         pe = self.temporal_positional_encoding(x.shape[2])
@@ -289,6 +293,13 @@ class SelectionModel(nn.Module):
             score_map, None if lang_full_mask is None
             else lang_full_mask[:, None, :], dim=-1)  # (b, n)
         return score_map, score_tokens
+
+    def kernel_seed_calls(self) -> int:
+        """Calls of a training forward that seed an attention kernel's
+        dropout (``DropoutRng.seed``), one a flash-route attention layer
+        with dropout."""
+        return sum(1 for m in self.modules()
+                   if isinstance(m, MultiHeadAttention) and m.seeds_kernel)
 
     def get_negative_tokens(self, batch_size: int) -> torch.Tensor:
         """(b, n_negative, d) view of the learned negatives (train.py:92)."""

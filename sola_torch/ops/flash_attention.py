@@ -23,8 +23,10 @@ Dropout is the JAX package's counter hash (``_keep_mask``): an entry
 and those indices falls below ``round((1 - rate) * 2^32)``, and kept
 probabilities are scaled by ``1 / (1 - rate)``; the softmax denominator
 stays undropped. Both kernels regenerate the same mask from the seed,
-so no mask tensor exists. ``fused_attention`` wires them as one
-``torch.autograd.Function``.
+so no mask tensor exists, and both read the seed from device memory (an
+int64 tensor, typically a view into a buffer of a step's seeds): a CUDA
+graph that captured a call replays it with the seed written there since.
+``fused_attention`` wires them as one ``torch.autograd.Function``.
 
 On a CUDA tensor the wrappers launch the kernels or raise. On a CPU tensor
 they run ``attention_reference`` and ``attention_bwd_reference``, the plain
@@ -82,17 +84,18 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def keep_mask_reference(seed: int, bh, lq: int, lk: int,
+def keep_mask_reference(seed, bh, lq: int, lk: int,
                         rate: float) -> torch.Tensor:
     """Plain version of the kernels' keep mask: bool (*bh.shape, lq, lk),
-    True where (batch*head ``bh``, query q, key k) is kept. ``bh`` is an
-    index or a tensor of indices; the hash uses global indices, so the mask
-    does not depend on any tiling. The wrapping uint32 arithmetic runs in
-    int64 with a 32-bit mask after each multiply."""
+    True where (batch*head ``bh``, query q, key k) is kept. ``seed`` is an
+    integer or an integer tensor whose first element is the seed; ``bh`` is
+    an index or a tensor of indices; the hash uses global indices, so the
+    mask does not depend on any tiling. The wrapping uint32 arithmetic runs
+    in int64 with a 32-bit mask after each multiply."""
     thresh, _ = dropout_consts(rate)
     bh = torch.as_tensor(bh, dtype=torch.int64)
-    seed_t = torch.tensor(int(seed) & _MASK32, dtype=torch.int64,
-                          device=bh.device)
+    seed_t = torch.as_tensor(seed, dtype=torch.int64).to(
+        bh.device).reshape(-1)[0] & _MASK32
     base = _fmix32(seed_t ^ _mul32(bh, 0x9E3779B1))[..., None, None]
     rows = _mul32(torch.arange(lq, dtype=torch.int64, device=bh.device),
                   0x85EBCA6B)[:, None]
@@ -123,8 +126,7 @@ def _scores(q, k, key_mask):
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_mask: Optional[torch.Tensor] = None,
-                        dropout_rate: float = 0.0,
-                        dropout_seed: Optional[int] = None):
+                        dropout_rate: float = 0.0, dropout_seed=None):
     """Plain PyTorch version of the forward kernel's function: (out, lse).
 
     q (B, H, Lq, D); k, v (B, H, Lk, D); key_mask (B, Lk) bool or None.
@@ -153,8 +155,7 @@ def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def attention_bwd_reference(q, k, v, key_mask, out, lse, do,
-                            dropout_rate: float = 0.0,
-                            dropout_seed: Optional[int] = None):
+                            dropout_rate: float = 0.0, dropout_seed=None):
     """Plain PyTorch version of the backward kernel: (dq, dk, dv) in
     the dtypes of q, k, v, in the formulas of ``_attn_bwd_dq_kernel`` and
     ``_attn_bwd_dkv_kernel``: P = exp(S - lse) from the forward's lse,
@@ -185,7 +186,7 @@ def attention_bwd_reference(q, k, v, key_mask, out, lse, do,
 
 _PTR, _INT, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                           ctypes.c_float)
-_DROP_ARGS = [_F32, _U32, _U32, _F32, _PTR]  # scale, seed, thresh, inv, stream
+_DROP_ARGS = [_F32, _PTR, _U32, _F32, _PTR]  # scale, seed, thresh, inv, stream
 
 
 def _library(name: str, fns: dict):
@@ -260,12 +261,27 @@ def _check(q, k, v, key_mask, extra=()):
     return key_mask.to(device=q.device, dtype=torch.uint8).contiguous()
 
 
-def _drop_args(q, rate: float, seed: Optional[int]) -> tuple:
+def seed_tensor(seed, device) -> torch.Tensor:
+    """The dropout seed as an int64 tensor on ``device`` whose first
+    element the kernels read: an integer or a host tensor is copied there,
+    a tensor already there (a view into a buffer of seeds) is used in
+    place, so a captured launch reads what the buffer holds at replay."""
+    if seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.tensor([int(seed) & _MASK32], dtype=torch.int64)
+    return seed.to(device=device, dtype=torch.int64, non_blocking=True)
+
+
+def _drop_args(q, rate: float, seed) -> tuple:
+    """(scale, seed pointer, keep_thresh, inv_keep) for a launch; the seed
+    tensor must live until the launch is queued (stream order keeps its
+    memory until the kernel has run)."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     if rate == 0.0:
-        return scale, 0, 0, 0.0
+        return scale, None, 0, 0.0
     thresh, inv_keep = dropout_consts(rate)
-    return scale, int(seed) & _MASK32, thresh, inv_keep
+    return scale, seed.data_ptr(), thresh, inv_keep
 
 
 def _stream(t):
@@ -277,6 +293,8 @@ def _launch(q, k, v, key_mask, dropout_rate=0.0, dropout_seed=None):
     global launches
     b, h, lq, d = q.shape
     mask = _check(q, k, v, key_mask)
+    seed = (seed_tensor(dropout_seed, q.device) if dropout_rate > 0.0
+            else None)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
     lib = _fwd_library()
@@ -285,8 +303,8 @@ def _launch(q, k, v, key_mask, dropout_rate=0.0, dropout_seed=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             mask.data_ptr() if mask is not None else None,
             out.data_ptr(), lse.data_ptr(), b * h, h, lq, k.shape[2], d,
-            _DTYPE_CODE[q.dtype],
-            *_drop_args(q, dropout_rate, dropout_seed), _stream(q))
+            _DTYPE_CODE[q.dtype], *_drop_args(q, dropout_rate, seed),
+            _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: "
                            f"cudaError {rc}")
@@ -308,6 +326,8 @@ def _launch_bwd_kernel(q, k, v, key_mask, do, lse, delta, dropout_rate=0.0,
                          f"{tuple(lse.shape)}, delta {tuple(delta.shape)} do "
                          f"not match q {tuple(q.shape)} {q.dtype}")
     g, rh, kh = bwd_plan(h, lq, lk, d)
+    seed = (seed_tensor(dropout_seed, q.device) if dropout_rate > 0.0
+            else None)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     # dQ summed over several key chunks in fp32, in chunk order
     ws = (torch.empty(q.shape, device=q.device, dtype=torch.float32)
@@ -320,7 +340,7 @@ def _launch_bwd_kernel(q, k, v, key_mask, do, lse, delta, dropout_rate=0.0,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), ws.data_ptr() if ws is not None else None,
             b * h, h, lq, lk, d, g, rh, kh, _DTYPE_CODE[q.dtype],
-            *_drop_args(q, dropout_rate, dropout_seed), _stream(q))
+            *_drop_args(q, dropout_rate, seed), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: "
                            f"cudaError {rc}")
@@ -361,7 +381,8 @@ def flash_backward(q, k, v, key_mask, out, lse, do, dropout_rate=0.0,
 class FlashAttention(torch.autograd.Function):
     """Fused attention whose forward is the forward kernel and whose
     backward is the backward kernel (plain versions on the CPU). The
-    key mask and the dropout seed get no gradient."""
+    key mask and the dropout seed get no gradient; the backward reads the
+    seed tensor that the forward read."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, dropout_rate, dropout_seed):
@@ -404,13 +425,13 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient through the backward kernel.
 
     ``dropout_rate`` > 0 drops attention probabilities in the kernels with
-    the counter hash of ``dropout_seed``, a (1,) integer tensor (vary it per
-    call). ``block_q``/``block_k`` keep the JAX signature and are not
-    used."""
+    the counter hash of ``dropout_seed``, an integer tensor whose first
+    element is the seed (vary it per call), read on the device without a
+    host sync: a view into the step's seed buffer (``DropoutRng``) or a
+    (1,) host tensor, copied over. ``block_q``/``block_k`` keep the JAX
+    signature and are not used."""
     del block_q, block_k
     seed = None
     if dropout_rate > 0.0:
-        if dropout_seed is None:
-            raise ValueError("dropout_rate > 0 requires dropout_seed")
-        seed = int(dropout_seed.reshape(-1)[0]) & _MASK32
+        seed = seed_tensor(dropout_seed, q.device)
     return FlashAttention.apply(q, k, v, key_mask, float(dropout_rate), seed)

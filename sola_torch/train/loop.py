@@ -8,7 +8,10 @@ global-norm clipping at 1.0, a validation pass per epoch with TP/FP/FN/TN,
 validation loss, and a checkpoint every epoch (``epoch_N.pth`` plus a
 resume file).
 
-The steps run eagerly on the device. Dropout (the motion encoder's and, in
+On a CUDA device without a mesh each training step replays CUDA graphs,
+captured once per padded batch shape (``train/graphs.py``); elsewhere,
+and for validation, the steps run eagerly. Both give the same numbers.
+Dropout (the motion encoder's and, in
 the model's attention, the kernels' counter hash) draws from one
 ``torch.Generator`` per epoch, seeded ``42 + epoch``, and epoch N's
 shuffle is seeded ``seed + N`` however many epochs the process ran before,
@@ -50,6 +53,7 @@ from tqdm import tqdm
 from sola_torch.config import finalize_train_configs
 from sola_torch.data.dataset import get_loader_dict
 from sola_torch.device import resolve_device
+from sola_torch.models.layers import DropoutRng
 from sola_torch.models.selection import (SelectionConfig, SelectionModel,
                                          init_weights)
 from sola_torch.models.text import CachingTextEncoder, build_text_encoder
@@ -57,6 +61,7 @@ from sola_torch.parallel import tp
 from sola_torch.parallel.distributed import process_count, rank_device
 from sola_torch.parallel.mesh import (make_mesh, reduce_sum, shard_batch,
                                       sum_gradients)
+from sola_torch.train import graphs
 from sola_torch.train import loss as loss_lib
 from sola_torch.train import state as state_lib
 from sola_torch.train.schedule import ReduceLROnPlateau
@@ -100,22 +105,25 @@ def prepare_batch(batch: dict, text_encoder, train_cfg: Optional[dict],
 
 
 def _forward(model: SelectionModel, batch: dict,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             rng: Optional[DropoutRng] = None):
     """(score logits, score tokens) of one batch; a training forward when
-    ``generator`` is given."""
+    ``generator`` or ``rng`` is given."""
     return model(
         batch["object_tokens"], batch["lang_tokens"],
         track_mask=batch["track_mask"], frame_lengths=batch["frame_lengths"],
-        lang_mask=batch["lang_mask"], deterministic=generator is None,
-        generator=generator)
+        lang_mask=batch["lang_mask"],
+        deterministic=generator is None and rng is None,
+        generator=generator, rng=rng)
 
 
 def _losses(model: SelectionModel, batch: dict, train_cfg: dict,
-            generator: Optional[torch.Generator] = None, group=None):
+            generator: Optional[torch.Generator] = None, group=None,
+            rng: Optional[DropoutRng] = None):
     """(score logits, loss, parts) of one batch; a training forward when
-    ``generator`` is given; means over a data-parallel ``group``'s valid
-    tracks."""
-    score_logits, score_tokens = _forward(model, batch, generator)
+    ``generator`` or ``rng`` is given; means over a data-parallel
+    ``group``'s valid tracks."""
+    score_logits, score_tokens = _forward(model, batch, generator, rng)
     loss, parts = loss_lib.total_loss(
         score_logits, score_tokens, batch["labels"], batch["pos_tokens"],
         model.get_negative_tokens(score_tokens.shape[0]),
@@ -131,12 +139,23 @@ def train_step(model: SelectionModel, optimizer: state_lib.Optimizer,
                batch: dict, train_cfg: dict,
                generator: torch.Generator, mesh=None) -> dict:
     """One optimizer step: forward with dropout, ``total_loss``, backward,
-    clip, AdamW. Returns the loss parts and the gradient norm as device
-    scalars (no host sync). On a ``mesh`` the parts are this rank's shares
-    of the global batch's, and the gradients are summed over the data
-    group before the clip."""
+    clip, AdamW. Returns the loss parts and the gradient norm as fresh
+    device scalars (no host sync). On a CUDA device without a ``mesh`` the
+    step replays the batch shape's CUDA graphs (``graphs.StepGraphs``,
+    captured at the shape's first step), with the numbers of the eager
+    step. On a ``mesh`` the parts are this rank's shares of the global
+    batch's, and the gradients are summed over the data group before the
+    clip."""
     data_group = mesh.data_group if mesh is not None else None
     model.train()
+    profiling.count("train.steps")
+    if graphs.usable(batch, mesh):
+        if optimizer.graphs is None or optimizer.graphs.model is not model:
+            optimizer.graphs = graphs.StepGraphs(model, optimizer)
+        return optimizer.graphs.step(
+            batch, generator,
+            lambda inputs, rng: _losses(model, inputs, train_cfg,
+                                        rng=rng)[1:])
     optimizer.zero_grad()
     with profiling.span("train.forward"):
         _, loss, parts = _losses(model, batch, train_cfg, generator,

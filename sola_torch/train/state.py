@@ -5,7 +5,11 @@ reference and the JAX package: AdamW (betas (0.9, 0.999), eps 1e-8,
 weight decay 0.01; train.py:44-49) after global-norm clipping at
 ``grad_clip_norm``, which scales the gradients only when their norm is at
 or above the threshold, as ``optax.clip_by_global_norm`` does
-(``g / norm * max_norm``).
+(``g / norm * max_norm``). On a CUDA device AdamW is capturable, its step
+counts and learning rate device tensors, so a CUDA graph of the update
+(``train/graphs.py``) and the eager update run the same kernels, and a
+new learning rate reaches the graph; gradients are zeroed in place, never
+freed, so the buffers a graph writes stay the parameters' ``grad``.
 
 Checkpoints: orbax is JAX's, so each epoch writes ``epoch_N.pth``, the
 model's reference-named ``state_dict`` (what the reference saves,
@@ -55,9 +59,21 @@ class Optimizer:
         self.split = (torch.tensor([s for s, k in zip(split, keep) if k])
                       if group is not None else None)
         self.grad_clip_norm = float(grad_clip_norm or 0.0)
-        self.adamw = torch.optim.AdamW(self.params, lr=lr,
+        self.capturable = bool(self.params) and self.params[0].is_cuda
+        # the learning rate every update reads: one device tensor, written
+        # in place, on CUDA; a float elsewhere
+        self.lr = (torch.tensor(float(lr), device=self.params[0].device)
+                   if self.capturable else float(lr))
+        self.adamw = torch.optim.AdamW(self.params, lr=self.lr,
                                        betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=weight_decay)
+                                       weight_decay=weight_decay,
+                                       capturable=self.capturable)
+        self.set_lr(self.lr)
+        # eager capturable updates are meant: they equal the replayed ones
+        self.adamw._warned_capturable_if_run_uncaptured = True
+        # the training step's CUDA graphs (train/graphs.py), made by the
+        # first step that runs from them
+        self.graphs = None
 
     def clip(self) -> torch.Tensor:
         """Scale the gradients by max_norm / norm when norm >= max_norm;
@@ -84,13 +100,34 @@ class Optimizer:
         return norm
 
     def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=True)
+        """Zero the gradients in place (a graph's buffers stay bound)."""
+        self.adamw.zero_grad(set_to_none=False)
+
+    def set_lr(self, lr: float) -> None:
+        """The learning rate of the next update, eager or replayed."""
+        if self.capturable:
+            if lr is not self.lr:
+                self.lr.fill_(float(lr))
+        else:
+            self.lr = float(lr)
+        for group in self.adamw.param_groups:
+            group["lr"] = self.lr
 
     def state_dict(self) -> dict:
         return self.adamw.state_dict()
 
     def load_state_dict(self, state: dict) -> None:
+        """Load a state dict written capturable or not, with a float or a
+        tensor learning rate: step counts move to where this optimizer
+        keeps them, and the learning rate into ``self.lr``. Graphs of the
+        old state are dropped."""
+        state = dict(state)
+        state["param_groups"] = [
+            {**g, "capturable": self.capturable, "lr": float(g["lr"])}
+            for g in state["param_groups"]]
         self.adamw.load_state_dict(state)
+        self.set_lr(state["param_groups"][0]["lr"])
+        self.graphs = None
 
 
 def make_optimizer(params, lr: float, grad_clip_norm: float = 1.0,
@@ -100,9 +137,9 @@ def make_optimizer(params, lr: float, grad_clip_norm: float = 1.0,
 
 
 def set_learning_rate(optimizer: Optimizer, lr: float) -> None:
-    """Write the plateau schedule's LR into the optimizer."""
-    for group in optimizer.adamw.param_groups:
-        group["lr"] = lr
+    """Write the plateau schedule's LR into the optimizer (and so into
+    its captured update)."""
+    optimizer.set_lr(lr)
 
 
 def grad_norm_dict(model: nn.Module) -> dict:
