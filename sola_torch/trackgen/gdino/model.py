@@ -451,7 +451,8 @@ class GroundingDINO(nn.Module):
 
         Returns {"pred_logits": (B, nq, max_text_len) fp32 (-inf padded),
         "pred_boxes": (B, nq, 4) cxcywh in [0,1], "encoder_text",
-        "init_reference_points"}.
+        "init_reference_points", "topk_indices": (B, nq) the proposals the
+        query selection kept, in its order}.
 
         Expression batching: when the text batch E exceeds the image batch
         (allowed only for image batch 1), the vision backbone runs once and
@@ -613,7 +614,8 @@ class GroundingDINO(nn.Module):
         logits = contrastive_logits(final, txt, token_mask, cfg.max_text_len)
         return {"pred_logits": logits, "pred_boxes": reference_points,
                 "encoder_text": txt,
-                "init_reference_points": init_reference_points}
+                "init_reference_points": init_reference_points,
+                "topk_indices": topk}
 
 
 @torch.no_grad()

@@ -11,6 +11,12 @@ The grounding model comes from a factory implementing ``get_boxes(image,
 text) -> [{"bbox": xyxy, "phrase": str, "token_score": [...]}]``, which the
 port's GroundingDINO (``trackgen.gdino.model.GroundingModel``) or a test fake
 satisfies. The models run on ``--device`` (CUDA by default).
+
+Spans: ``trackgen.grounding`` (the grounding forward's host issue),
+``trackgen.grounding_post`` (its fetch, sigmoid, gates and phrases) and
+``trackgen.box_prompt`` (SAM2's box -> mask call); counters
+``trackgen.grounded_pairs`` ((frame, expression) pairs grounded) and
+``trackgen.boxes`` (boxes over ``box_threshold``).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from sola_torch.core import mask_ops, rle
 from sola_torch.data import meta as meta_lib
 from sola_torch.trackgen.sam2.image import compute_stability_score
 from sola_torch.trackgen.tokens_grid import DATA_DIR_DICT
+from sola_torch.utils import profiling
 
 
 def normalize_expression(text: str) -> str:
@@ -64,7 +71,8 @@ class PromptGenerator:
             # runs once, the text-fused encoder/decoder batch over
             # expressions (the reference pays a full forward per (frame,
             # expression), prompt_generator.py:132-140)
-            pending_g = self.grounding.enqueue_boxes(image, texts)
+            with profiling.span("trackgen.grounding"):
+                pending_g = self.grounding.enqueue_boxes(image, texts)
         self.sam2.set_image(image)
         feats = (self.sam2.snapshot_features()
                  if hasattr(self.sam2, "snapshot_features") else None)
@@ -78,13 +86,15 @@ class PromptGenerator:
         if feats is not None:
             self.sam2.restore_features(feats)
         if pending_g is not None:
-            preds_many = self.grounding.harvest_boxes(
-                pending_g, box_threshold=self.box_threshold,
-                text_threshold=self.text_threshold)
+            with profiling.span("trackgen.grounding_post"):
+                preds_many = self.grounding.harvest_boxes(
+                    pending_g, box_threshold=self.box_threshold,
+                    text_threshold=self.text_threshold)
         else:
-            preds_many = [self.grounding.get_boxes(
-                image, t, box_threshold=self.box_threshold,
-                text_threshold=self.text_threshold) for t in texts]
+            with profiling.span("trackgen.grounding"):
+                preds_many = [self.grounding.get_boxes(
+                    image, t, box_threshold=self.box_threshold,
+                    text_threshold=self.text_threshold) for t in texts]
 
         outputs = {}
         for text_idx, (text, preds) in enumerate(zip(texts, preds_many)):
@@ -92,19 +102,12 @@ class PromptGenerator:
         # one box -> mask call for every expression's boxes
         flat = [(ti, p) for ti, preds in enumerate(preds_many)
                 for p in preds]
+        profiling.count("trackgen.grounded_pairs", len(texts))
+        profiling.count("trackgen.boxes", len(flat))
         if flat:
             boxes = np.stack([p["bbox"] for _, p in flat], axis=0)
-            if hasattr(self.sam2, "predict_packed"):
-                # bit-packed mask fetch + stability on the device
-                masks, scores, stabs = self.sam2.predict_packed(box=boxes)
-            else:
-                masks, scores, logits = self.sam2.predict(
-                    box=boxes, multimask_output=False)
-                if masks.ndim >= 4:
-                    masks = masks[:, 0]
-                    scores = scores[:, 0]
-                    logits = logits[:, 0]
-                stabs = [compute_stability_score(lg) for lg in logits]
+            with profiling.span("trackgen.box_prompt"):
+                masks, scores, stabs = self._box_masks(boxes)
             for i, (_, pred) in enumerate(flat):
                 pred.update({
                     "sam2_mask": masks[i],
@@ -112,6 +115,20 @@ class PromptGenerator:
                     "stability_score": float(stabs[i]),
                 })
         return outputs
+
+    def _box_masks(self, boxes: np.ndarray):
+        """(masks (N, H, W), mask scores (N,), stability scores (N,)) of
+        SAM2's single-mask prediction for N xyxy boxes."""
+        if hasattr(self.sam2, "predict_packed"):
+            # bit-packed mask fetch + stability on the device
+            return self.sam2.predict_packed(box=boxes)
+        masks, scores, logits = self.sam2.predict(box=boxes,
+                                                  multimask_output=False)
+        if masks.ndim >= 4:
+            masks = masks[:, 0]
+            scores = scores[:, 0]
+            logits = logits[:, 0]
+        return masks, scores, [compute_stability_score(lg) for lg in logits]
 
 
 def generate_video_prompts(prompt_generator: PromptGenerator, frames: list,
@@ -255,7 +272,6 @@ def main(argv=None, generator_factory=None) -> None:
         generator_factory = _default_generator_factory(args)
     generator = generator_factory()
 
-    from PIL import Image
     video_ids = list(meta["videos"].keys())
     for video_idx, video_id in enumerate(video_ids):
         if video_idx % args.n_pids != args.pid:
@@ -263,30 +279,41 @@ def main(argv=None, generator_factory=None) -> None:
         out_path = os.path.join(prompt_dir, f"{video_id}.json")
         if os.path.exists(out_path):
             continue
-        frames_dir = os.path.join(data_dir, "JPEGImages", video_id)
-        names = sorted(os.listdir(frames_dir))
-        frames = [np.array(Image.open(
-            os.path.join(frames_dir, n)).convert("RGB")) for n in names]
-        expressions = meta["videos"][video_id]["expressions"]
-        gt_masklets = None
-        anno_ids_by_expr = None
-        if mask_dict is not None:
-            gt_masklets = {}
-            anno_ids_by_expr = {}
-            for expr_id, em in expressions.items():
-                anno_ids_by_expr[expr_id] = em.get("anno_id", [])
-                for anno_id in em.get("anno_id", []):
-                    if str(anno_id) not in gt_masklets:
-                        # raw RLE rows, decoded lazily per visited frame
-                        # (the reference decodes only binned frames,
-                        # generate_prompts_gdino.py:158-165); absent frames
-                        # stay None, which the reference scores iou 0.0
-                        gt_masklets[str(anno_id)] = mask_dict[str(anno_id)]
-        info = generate_video_prompts(generator, frames, video_id,
-                                      expressions, args.bin_size,
-                                      gt_masklets, anno_ids_by_expr)
-        with open(out_path, "w") as f:
-            json.dump(info, f, indent=4)
+        prompt_video(generator, os.path.join(data_dir, "JPEGImages",
+                                             video_id),
+                     video_id, meta["videos"][video_id]["expressions"],
+                     args.bin_size, out_path, mask_dict)
+
+
+def prompt_video(generator: PromptGenerator, frames_dir: str, video_id: str,
+                 expressions: dict, bin_size: int, out_path: str,
+                 mask_dict: Optional[dict] = None) -> dict:
+    """One video of ``main``: decode its frames, run
+    ``generate_video_prompts`` (tagged with GT IoUs when ``mask_dict`` is
+    given) and write the prompts JSON to ``out_path``; returns it."""
+    from PIL import Image
+    names = sorted(os.listdir(frames_dir))
+    frames = [np.array(Image.open(
+        os.path.join(frames_dir, n)).convert("RGB")) for n in names]
+    gt_masklets = None
+    anno_ids_by_expr = None
+    if mask_dict is not None:
+        gt_masklets = {}
+        anno_ids_by_expr = {}
+        for expr_id, em in expressions.items():
+            anno_ids_by_expr[expr_id] = em.get("anno_id", [])
+            for anno_id in em.get("anno_id", []):
+                if str(anno_id) not in gt_masklets:
+                    # raw RLE rows, decoded lazily per visited frame (the
+                    # reference decodes only binned frames,
+                    # generate_prompts_gdino.py:158-165); absent frames
+                    # stay None, which the reference scores iou 0.0
+                    gt_masklets[str(anno_id)] = mask_dict[str(anno_id)]
+    info = generate_video_prompts(generator, frames, video_id, expressions,
+                                  bin_size, gt_masklets, anno_ids_by_expr)
+    with open(out_path, "w") as f:
+        json.dump(info, f, indent=4)
+    return info
 
 
 def _default_generator_factory(args):

@@ -8,6 +8,9 @@ tracked with ``n_max_tracks=16``, and written under
 ``runtime_info.json`` (generate_tokens_gdino.py:138-145). The predictor runs
 on ``--device`` (CUDA by default); ``--expr_pack N`` packs N expressions of
 a video into shared propagation rounds (``packed_engine``).
+Counter ``trackgen.prompts_kept``: prompts past the bin and stability
+gates, over every expression loaded; span ``trackgen.emit``: each track's
+RLE encode and file writes.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from sola_torch.trackgen import engine, gt_utils
 from sola_torch.trackgen.prefetch import StatePrefetcher
 from sola_torch.trackgen.tokens_grid import (DATA_DIR_DICT,
                                              _default_predictor_factory)
+from sola_torch.utils import profiling
 
 
 def load_expression_prompts(prompt_path: str, video_id: str, bin_size: int,
@@ -59,6 +63,7 @@ def load_expression_prompts(prompt_path: str, video_id: str, bin_size: int,
             n_not_used += 1
             continue
         prompts.append(pm)
+    profiling.count("trackgen.prompts_kept", len(prompts))
     return prompts, n_not_used, n_total
 
 
@@ -76,6 +81,7 @@ def run_expression(predictor, state, video_id: str, expression_id: str,
         prompt_path, video_id, bin_size, expression_id,
         stability_score_thresh)
 
+    @profiling.spanned("trackgen.emit")
     def on_track(result: engine.TrackResult) -> None:
         metrics = None
         if gt_masklets is not None:
@@ -116,6 +122,7 @@ def run_expressions_packed(predictor, state, video_id: str,
     from sola_torch.trackgen import packed_engine
 
     def make_on_track(expression_id):
+        @profiling.spanned("trackgen.emit")
         def on_track(result: engine.TrackResult) -> None:
             metrics = None
             if gt_masklets is not None:
@@ -146,6 +153,28 @@ def run_expressions_packed(predictor, state, video_id: str,
     for expression_id, census in zip(expression_ids, censuses):
         census["n_not_used"], census["n_total"] = extras[expression_id]
         out[expression_id] = census
+    return out
+
+
+def run_video_packed(predictor, state, video_id: str, expression_ids: list,
+                     prompt_path: str, track_root: str, dataset: str,
+                     data_type: str, n_frames: int, *, expr_pack: int,
+                     on_group: Optional[Callable[[dict], None]] = None,
+                     **params) -> dict:
+    """One encoded video of ``main --expr_pack N``: its expressions in
+    groups of ``expr_pack``, each group through ``run_expressions_packed``
+    (``params`` are its keyword arguments), each census given its fps;
+    ``on_group(censuses)`` after each group. Returns every census."""
+    out = {}
+    for g0 in range(0, len(expression_ids), expr_pack):
+        censuses = run_expressions_packed(
+            predictor, state, video_id, expression_ids[g0:g0 + expr_pack],
+            prompt_path, track_root, dataset, data_type, n_frames, **params)
+        for census in censuses.values():
+            census["fps"] = n_frames / max(census["time"], 1e-9)
+        out.update(censuses)
+        if on_group is not None:
+            on_group(censuses)
     return out
 
 
@@ -260,23 +289,22 @@ def main(argv=None, predictor_factory=None) -> None:
         pending = [e for e in video_meta["expressions"]
                    if e not in runtime_info[video_id]]
         if args.expr_pack > 1:
-            for g0 in range(0, len(pending), args.expr_pack):
-                group = pending[g0:g0 + args.expr_pack]
-                censuses = run_expressions_packed(
-                    predictor, state, video_id, group,
-                    os.path.join(prompt_dir, f"{video_id}.json"),
-                    track_root, args.dataset, args.data_type, n_frames,
-                    bin_size=args.bin_size, batch_size=args.batch_size,
-                    miou_thresh=args.miou_thresh,
-                    stability_score_thresh=args.stability_score_thresh,
-                    n_max_tracks=args.n_max_tracks,
-                    gt_masklets=gt_masklets)
-                for expression_id, census in censuses.items():
-                    census["fps"] = n_frames / max(census["time"], 1e-9)
-                    runtime_info[video_id][expression_id] = census
+            def on_group(censuses, video_id=video_id,
+                         runtime_info=runtime_info):
+                runtime_info[video_id].update(censuses)
                 os.makedirs(out_dir, exist_ok=True)
                 with open(runtime_path, "w") as f:
                     json.dump(runtime_info, f, indent=4)
+
+            run_video_packed(
+                predictor, state, video_id, pending,
+                os.path.join(prompt_dir, f"{video_id}.json"), track_root,
+                args.dataset, args.data_type, n_frames,
+                expr_pack=args.expr_pack, on_group=on_group,
+                bin_size=args.bin_size, batch_size=args.batch_size,
+                miou_thresh=args.miou_thresh,
+                stability_score_thresh=args.stability_score_thresh,
+                n_max_tracks=args.n_max_tracks, gt_masklets=gt_masklets)
             continue
         for expression_id in pending:
             start = time.time()
