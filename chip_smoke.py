@@ -21,10 +21,11 @@ Phases (any failure raises and exits nonzero, and no result line prints):
 3. The main path: SAM2 hiera-L (full width, seeded random weights) built by
    tokens_grid's own predictor factory, ``init_state`` + ``run_video`` on 2
    synthetic 12-frame 480x854 videos; checks the written masklets and
-   tokens, the census, and that the flash kernel launched at both call
-   sites (Hiera's global blocks during the encode, memory attention during
-   propagation); then measures how far the bf16-compute encoder's features
-   lie from an fp32 model's.
+   tokens, the census, and the flash kernel's records in a torch.profiler
+   trace of each stage (Hiera's global blocks during the encode; memory
+   attention's, 2 a layer each propagation step, during propagation: the
+   steps replay CUDA graphs, which no wrapper call sees); then measures how
+   far the bf16-compute encoder's features lie from an fp32 model's.
 4. A small reference: the same tokens_grid run at SAM2Config.tiny_test on
    the card (fp32, fused thresholds lowered so the kernel runs) against the
    CPU, which runs the kernel's plain version; and the encoder's bf16
@@ -45,7 +46,8 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    expressions; checks the prompt JSON's schema, a tracked prompt per
    expression, the written masklets and tokens, and the kernels' launches
    by call site (deformable: encoder and decoder, 6 + 6 per forward; flash:
-   SAM2 image encode, video encode, propagation). Then one forward of the
+   SAM2 image encode and video encode by wrapper call, propagation by
+   device record, 2 a memory-attention layer a step). Then one forward of the
    Swin-B GroundingDINO (a swinb checkpoint name, absent: seeded random
    weights) on the same frame and expressions: 6 + 6 deformable launches,
    finite boxes, its time beside Swin-T's.
@@ -83,7 +85,9 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    prompt JSONs, then cli.eval and cli.inference with a seeded random
    SelectionConfig() checkpoint, random RoBERTa-large and the flash
    attention route. Checks the prompt JSONs, tracks, J&F JSONs and PNGs,
-   and the flash launches (3 per binned frame in the AMG, some in eval);
+   and the flash launches (3 per binned frame in the AMG, 2 a
+   memory-attention layer each propagation step by device record, some in
+   eval);
    prompt frames/s with a warm AMG frame's breakdown, object-fps, eval and
    inference seconds, peak memory.
 12. A small reference for that path at SAM2Config.tiny_test: the AMG's
@@ -99,8 +103,11 @@ Phases (any failure raises and exits nonzero, and no result line prints):
    first appears at frame 3); each against its sequential run at the
    CLI's default obj_batch and at the packed run's 8: the same artifact
    files and decisions, masks, tokens and prec/rec/IoU within stated
-   limits, flash launches at memory attention in every run; object-fps,
-   GT seeds/s and peak memory.
+   limits, the flash kernel at memory attention in every run, 2 a layer
+   each step (its device records in a torch.profiler trace of the run: the
+   propagation steps replay CUDA graphs, which no wrapper call sees), and
+   the rest of its records at the image encoder; object-fps (under the
+   profiler), GT seeds/s and peak memory.
 14. A small reference for the packed paths at SAM2Config.tiny_test (fp32):
    packed grid tracks, packed expressions, sequential and packed GT on the
    card against the CPU; packed against sequential on the card under
@@ -964,6 +971,38 @@ def device_kernel_counts(fn, parts=(("flash_attn_fwd", "flash_fwd_"),
                   for label, part in parts}, counters)
 
 
+# the flash kernel's device records on a track-generation path: all of
+# them, and memory attention's (bf16, head dim 256: SAM2's one head of
+# d_model 256); the image encoders' global attention runs another instance
+TRACK_PARTS = (("flash_attn_fwd", "flash_fwd_"),
+               ("memory", "flash_fwd_wgmma_kernel<256"))
+
+
+def track_records(fn) -> tuple:
+    """Run ``fn`` once under torch.profiler: (what it returns, the flash
+    kernel's device records: all, at memory attention, and the rest, the
+    image encoders'; with the propagation steps, graph captures and
+    replays the port counted). Replayed steps launch their kernels from
+    CUDA graphs, which no wrapper call sees; CUPTI records each."""
+    out, rec, counters = device_kernel_counts(fn, parts=TRACK_PARTS)
+    rec["other"] = rec["flash_attn_fwd"] - rec["memory"]
+    for k in ("steps", "graph_captures", "graph_replays"):
+        rec[k] = counters.get(f"trackgen.{k}", 0)
+    return out, rec
+
+
+def check_memory_records(rec: dict, n_layers: int, what: str) -> None:
+    """Every propagation step runs memory attention's self- and
+    cross-attention once a layer, eagerly at a direction's first step and
+    from its graph after (the capture launches nothing): the records at
+    memory attention are 2 x layers x steps, and a step ran."""
+    want = 2 * n_layers * rec["steps"]
+    if rec["steps"] == 0 or rec["memory"] != want:
+        raise AssertionError(f"{what}: flash records at memory attention "
+                             f"{rec['memory']}, want 2 x {n_layers} layers "
+                             f"x {rec['steps']} steps = {want} ({rec})")
+
+
 def gdino_breakdown(grounding, image_pred, frame) -> dict:
     """Where a binned frame's time goes, warm, at the path's shapes: the
     GroundingDINO forward over the 3 expressions (padded to 4), the SAM2
@@ -1026,17 +1065,29 @@ def run_gdino_path(fa, di) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = di.launches = 0  # the path's counts start here
+    di.launches = 0  # the path's counts start here
     dsites.reset()
     fsites.reset()
-    info, prompts_s = prompts_stage(root, vid, frames, masks, grounding,
-                                    image_pred, "cuda", box_thr)
-    stab_thr = stability_gate(info)
-    census, tokens_s = tokens_stage(root, vid, video_pred, "cuda", stab_thr)
-    launches = {"flash_attn_fwd": fa.launches,
+
+    def stages():
+        info, prompts_s = prompts_stage(root, vid, frames, masks, grounding,
+                                        image_pred, "cuda", box_thr)
+        stab_thr = stability_gate(info)
+        return (info, prompts_s, stab_thr) + tokens_stage(
+            root, vid, video_pred, "cuda", stab_thr)
+
+    # the flash kernel's device records: the image encoders run eagerly,
+    # so their wrapper calls by site count their launches; the
+    # propagation steps replay graphs, so theirs are the records at
+    # memory attention. Both stages are timed under torch.profiler.
+    (info, prompts_s, stab_thr, census, tokens_s), rec = track_records(
+        stages)
+    launches = {"flash_attn_fwd": rec["flash_attn_fwd"],
                 "ms_deform_attn_fwd": di.launches}  # read right after
     deform, flash = dict(dsites.counts), dict(fsites.counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_memory_records(rec, video_pred.cfg.memory_attention.num_layers,
+                         "gdino")
 
     counts = check_prompt_json(info, vid, T_FRAMES, (H_VID, W_VID))
     check_gdino_tracks(root, vid, census, T_FRAMES, (H_VID, W_VID),
@@ -1045,7 +1096,11 @@ def run_gdino_path(fa, di) -> dict:
     chunks = binned * -(-len(GD_EXPRESSIONS) // grounding.max_expr_batch)
     want = {"encoder": gcfg.enc_layers * chunks,
             "decoder": gcfg.dec_layers * chunks}
-    flash["propagation"] = launches["flash_attn_fwd"] - sum(flash.values())
+    if rec["other"] != sum(flash.values()):
+        raise AssertionError(f"flash records outside memory attention "
+                             f"{rec['other']}, wrapper calls at the image "
+                             f"encoders {flash}")
+    flash["propagation"] = rec["memory"]
     if (deform != want
             or sum(deform.values()) != launches["ms_deform_attn_fwd"]
             or min(flash.values()) <= 0):
@@ -1068,7 +1123,10 @@ def run_gdino_path(fa, di) -> dict:
            "tracking_s": track_s,
            "object_fps": tracked * T_FRAMES / track_s,
            "launches": launches, "deform_launches": deform,
-           "flash_launches": flash, "peak_memory_gb": peak_gb,
+           "flash_launches": flash,
+           "steps": {k: rec[k] for k in ("steps", "graph_captures",
+                                         "graph_replays")},
+           "peak_memory_gb": peak_gb,
            "build_s": build_s,
            "breakdown": gdino_breakdown(grounding, image_pred, frames[0])}
     log(f"  box_threshold {box_thr:.6f} (keeps >= 3 boxes per "
@@ -1082,7 +1140,10 @@ def run_gdino_path(fa, di) -> dict:
         f"{track_s:.2f} s ({row['object_fps']:.2f} object-fps over "
         f"{tracked} tracks); census {row['census']}")
     log(f"  launches: deformable {deform} (want {want}), flash "
-        f"{flash}; peak memory {peak_gb:.2f} GB; card {smi_line()}")
+        f"{flash} (propagation: device records over {rec['steps']} steps,"
+        f" {rec['graph_captures']} captures, {rec['graph_replays']} "
+        f"replays; stages timed under torch.profiler); peak memory "
+        f"{peak_gb:.2f} GB; card {smi_line()}")
     bd = row["breakdown"]
     prof = bd["gdino_forward_profile"]
     log(f"  per binned frame, warm: GroundingDINO forward (E 3 -> 4) "
@@ -1374,7 +1435,7 @@ def check_tracks(track_root: str, video_id: str, census: dict, tracks,
     return float(np.mean(areas))
 
 
-def run_main_path(fa) -> dict:
+def run_main_path() -> dict:
     from sola_torch.core import rle
     from sola_torch.data import tracks
     from sola_torch.trackgen import tokens_grid
@@ -1404,24 +1465,27 @@ def run_main_path(fa) -> dict:
         videos.append((vid, frames, path, n_prompts))
 
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0  # the main path's count starts here
+    # the flash kernel's device records (``track_records``), each stage
+    # timed under torch.profiler
     per_video = []
+    layers = cfg.memory_attention.num_layers
     hiera_launches = memory_launches = 0
     for vid, frames, path, n_prompts in videos:
-        before = fa.launches
         t0 = time.perf_counter()
-        state = predictor.init_state(frames)
-        torch.cuda.synchronize()
+        state, enc = track_records(lambda: predictor.init_state(frames))
         enc_s = time.perf_counter() - t0
-        mid = fa.launches
         t0 = time.perf_counter()
-        census = tokens_grid.run_video(
+        census, run = track_records(lambda: tokens_grid.run_video(
             predictor, vid, None, path, out_root, "mevis", "valid_u",
-            bin_size=4, batch_size=4, state=state, log=lambda s: None)
-        torch.cuda.synchronize()
+            bin_size=4, batch_size=4, state=state, log=lambda s: None))
         prop_s = time.perf_counter() - t0
-        hiera_launches += mid - before
-        memory_launches += fa.launches - mid
+        check_memory_records(run, layers, vid)
+        row_hiera = enc["flash_attn_fwd"] + run["other"]
+        if enc["flash_attn_fwd"] == 0:
+            raise AssertionError(f"{vid}: no flash record in the encode "
+                                 f"({enc})")
+        hiera_launches += row_hiera
+        memory_launches += run["memory"]
         area = check_tracks(track_root, vid, census, tracks, rle,
                             cfg.d_model)
         row = {"video": vid, "prompts": n_prompts, "mask_area": area,
@@ -1430,21 +1494,25 @@ def run_main_path(fa) -> dict:
                "object_fps": census["n_tracked"] * T_FRAMES / prop_s,
                "census": {k: census[k] for k in (
                    "n_tracked", "n_filtered", "n_not_used", "n_total")},
-               "hiera_launches": mid - before,
-               "memory_launches": fa.launches - mid}
+               "hiera_launches": row_hiera,
+               "memory_launches": run["memory"],
+               "steps": run["steps"],
+               "graph_captures": run["graph_captures"],
+               "graph_replays": run["graph_replays"]}
         per_video.append(row)
         log(f"  {vid}: encode {enc_s:.2f} s ({row['encode_fps']:.2f} "
             f"frames/s), run_video {prop_s:.2f} s ({row['object_fps']:.2f} "
-            f"object-fps), census {row['census']}, mean masklet area "
-            f"{area:.3f} (random weights), launches hiera "
-            f"{row['hiera_launches']} memory {row['memory_launches']}")
-    launches = fa.launches  # read right after the main path
-    if hiera_launches == 0 or memory_launches == 0:
-        raise AssertionError(f"flash kernel launches: hiera "
-                             f"{hiera_launches}, memory {memory_launches}")
+            f"object-fps), both under torch.profiler; census "
+            f"{row['census']}, mean masklet area {area:.3f} (random "
+            f"weights); flash device records hiera {row_hiera}, memory "
+            f"{run['memory']} over {run['steps']} steps "
+            f"({run['graph_captures']} captures, {run['graph_replays']} "
+            f"replays)")
+    launches = hiera_launches + memory_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  main path: {launches} kernel launches (hiera {hiera_launches}, "
-        f"memory {memory_launches}), peak memory {peak_gb:.2f} GB")
+    log(f"  main path: {launches} flash kernel records (hiera "
+        f"{hiera_launches}, memory {memory_launches}), peak memory "
+        f"{peak_gb:.2f} GB")
     drift = encoder_drift(predictor, videos[0][1][:predictor.encode_chunk],
                           seed=0)
     del predictor
@@ -2494,13 +2562,16 @@ def run_grid_main_path(fa) -> dict:
             n_prompts[vid] = check_grid_prompt_json(json.load(f), vid,
                                                     T_FRAMES, (H_VID, W_VID))
 
-    fa.launches = 0  # tokens_grid's count starts here
+    # tokens_grid's flash kernel records, timed under torch.profiler
     t0 = time.perf_counter()
-    tokens_grid.main(argv + ["--batch_size", "4", "--save_prec_rec_iou"],
-                     predictor_factory=lambda: video_pred)
-    torch.cuda.synchronize()
+    _, tokens_rec = track_records(lambda: tokens_grid.main(
+        argv + ["--batch_size", "4", "--save_prec_rec_iou"],
+        predictor_factory=lambda: video_pred))
     tokens_s = time.perf_counter() - t0
-    tokens_launches = fa.launches
+    check_memory_records(tokens_rec,
+                         video_pred.cfg.memory_attention.num_layers,
+                         "tokens_grid")
+    tokens_launches = tokens_rec["flash_attn_fwd"]
     with open(os.path.join(root, "sam2_tracks", "grid_tracks", "mevis",
                            "valid_u", f"runtime_info_{GRID_BIN}.json")) as f:
         census = json.load(f)
@@ -2509,8 +2580,6 @@ def run_grid_main_path(fa) -> dict:
                      tracks, rle, video_pred.cfg.d_model)
     tracked = sum(c["n_tracked"] for c in census.values())
     track_s = sum(c["time"] for c in census.values())
-    if tokens_launches == 0:
-        raise AssertionError("no flash launch in tokens_grid")
 
     yaml_path = grid_configs(root, "grid_main_path",
                              {"text_encoder": "roberta_random"})
@@ -2537,6 +2606,7 @@ def run_grid_main_path(fa) -> dict:
                       for v, c in census.items()},
            "launches": {"prompts_grid": amg_launches,
                         "tokens_grid": tokens_launches,
+                        "tokens_grid_memory": tokens_rec["memory"],
                         "eval": ev["eval_launches"],
                         "inference": ev["inference_launches"]},
            "eval_s": ev["eval_s"], "inference_s": ev["inference_s"],
@@ -2550,9 +2620,11 @@ def run_grid_main_path(fa) -> dict:
         f"({row['prompt_frames_per_s']:.3f} frames/s, reading the frames "
         f"included; {fallbacks.n} overflow fallbacks), flash launches "
         f"{amg_launches} ({per_encode} a frame); tokens_grid.main "
-        f"{tokens_s:.2f} s, "
+        f"{tokens_s:.2f} s under torch.profiler, "
         f"tracking {track_s:.2f} s ({row['object_fps']:.2f} object-fps "
-        f"over {tracked} tracks), census {row['census']}")
+        f"over {tracked} tracks), flash device records {tokens_launches} "
+        f"({tokens_rec['memory']} at memory attention over "
+        f"{tokens_rec['steps']} steps), census {row['census']}")
     log(f"  cli.eval {ev['eval_s']:.2f} s (flash launches "
         f"{ev['eval_launches']}), cli.inference {ev['inference_s']:.2f} s "
         f"({ev['inference_launches']}); {row['metrics']}; {len(ev['pngs'])}"
@@ -3025,25 +3097,27 @@ def liveness(tracks: dict) -> dict:
     return {"live_frames": float(np.mean(shares)), "token_spread": spread}
 
 
-def run_pack_path(fa, name, main_fn, argv, pred, sites, timer,
+def run_pack_path(name, main_fn, argv, pred, sites, timer,
                   out_root: str, object_frames) -> dict:
-    """One CLI run of phase 13 with its own output root: flash launches
-    (zeroed just before, read just after) by site, wall and tracking
-    seconds, and the written tracks."""
+    """One CLI run of phase 13 with its own output root, under
+    torch.profiler: the flash kernel's device records (``track_records``;
+    memory attention's held to 2 x layers x steps), the wrapper calls at
+    the eager image encoder (zeroed just before, read just after), wall
+    and tracking seconds, and the written tracks."""
     torch.cuda.synchronize()
-    fa.launches = 0
     sites.reset()
     enc0 = timer.seconds
     t0 = time.perf_counter()
-    main_fn(argv + ["--output_root", out_root],
-            predictor_factory=lambda: pred)
-    torch.cuda.synchronize()
+    _, rec = track_records(
+        lambda: main_fn(argv + ["--output_root", out_root],
+                        predictor_factory=lambda: pred))
     wall = time.perf_counter() - t0
-    launches, by_site = fa.launches, dict(sites.counts)
     encode = timer.seconds - enc0
-    if by_site["memory"] <= 0:
-        raise AssertionError(f"{name}: no flash launch at memory attention "
-                             f"({by_site} of {launches})")
+    check_memory_records(rec, pred.cfg.memory_attention.num_layers, name)
+    if rec["other"] != sites.counts["hiera"]:
+        raise AssertionError(f"{name}: flash records outside memory "
+                             f"attention {rec['other']}, wrapper calls at "
+                             f"the image encoder {sites.counts}")
     track_root = os.path.join(out_root, "sam2_tracks")
     runtime = {}
     for dirpath, _, files in os.walk(track_root):
@@ -3055,8 +3129,9 @@ def run_pack_path(fa, name, main_fn, argv, pred, sites, timer,
     return {"wall_s": wall, "encode_s": encode, "tracking_s": wall - encode,
             "object_frames": frames_objects,
             "object_fps": frames_objects / (wall - encode),
-            "launches": launches, "flash_by_site": by_site,
-            "runtime": runtime, "tracks": read_tracks(track_root)}
+            "launches": rec["flash_attn_fwd"], "flash_records": rec,
+            "runtime": runtime,
+            "tracks": read_tracks(track_root)}
 
 
 def compare_pack_runs(path: str, runs: dict, decisions) -> dict:
@@ -3104,8 +3179,6 @@ def run_packed_paths(fa) -> dict:
     log(f"  weights: seed {seed}, the first of {tried} tried whose model "
         f"tracks the object ({probe_s:.1f} s)")
     sites = SiteCounter(fa)
-    sites.watch("memory", [p.model.memory_attention
-                           for p in by_batch.values()])
     sites.watch("hiera", [p.model.image_encoder for p in by_batch.values()])
     timer = EncodeTimer(by_batch.values())
 
@@ -3194,7 +3267,7 @@ def run_packed_paths(fa) -> dict:
                                ("seq8", 8, ["--obj_batch", "8"])):
             out_root = os.path.join(proot, name)
             write_in(out_root)
-            runs[name] = run_pack_path(fa, name, main_fn, argv + extra,
+            runs[name] = run_pack_path(name, main_fn, argv + extra,
                                        by_batch[b], sites, timer, out_root,
                                        frames_of)
         diffs = compare_pack_runs(path, runs, decisions)
@@ -3207,7 +3280,7 @@ def run_packed_paths(fa) -> dict:
         for name, r in runs.items():
             row[name] = {k: r[k] for k in (
                 "wall_s", "encode_s", "tracking_s", "object_frames",
-                "object_fps", "launches", "flash_by_site")}
+                "object_fps", "launches", "flash_records")}
         if path == "gt":
             for name, r in runs.items():
                 seeds = sum(len(s) for s in r["runtime"].values())
@@ -3223,7 +3296,7 @@ def run_packed_paths(fa) -> dict:
             f"{row[name]['object_fps']:.2f} object-fps"
             + (f", {row[name]['seeds_per_s']:.3f} seeds/s"
                if path == "gt" else "")
-            + f", flash {row[name]['flash_by_site']}"
+            + f", flash device records {row[name]['flash_records']}"
             for name, by_b in (("seq", paths[path][6]), ("pack", 8),
                                ("seq8", 8))))
         log(f"  {path}: packed vs sequential at obj_batch 8 "
@@ -4676,8 +4749,8 @@ def main() -> None:
     log("phase 2: flash kernel vs its plain version")
     kernel = check_flash_kernel(fa, gen)
     log("phase 3: tokens_grid main path at SAM2 hiera-L")
-    di.launches = 0  # run_main_path zeroes the flash count itself
-    main_path = run_main_path(fa)
+    di.launches = 0  # the main path's deformable count starts here
+    main_path = run_main_path()
     main_path["deform_launches"] = di.launches  # the path has no GDINO
     log("phase 4: small reference")
     small = run_small_reference(fa)
@@ -4727,6 +4800,9 @@ def main() -> None:
     # the training path's largest site in fp32: object2lang_attn
     thead = next(r for r in training_kernels["rows"]
                  if r["shape"] == "object2lang_attn")
+    # launches: device records where a path replays CUDA graphs (the
+    # propagation steps, the training steps), wrapper calls where it runs
+    # eagerly
     by_path = {
         "flash_attn_fwd": {"tokens_grid": main_path["launches"],
                            "gdino": gdino_path["launches"]["flash_attn_fwd"],

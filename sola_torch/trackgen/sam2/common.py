@@ -224,7 +224,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Scaled dot-product attention over (B, H, L, D) head tensors as plain
     matmuls: fp32 logits and softmax, probabilities cast to q's dtype for
     the PV product."""
-    scale = attn_scale(q.shape[-1], q.dtype).to(q.device)
+    # a CPU scalar: no host-to-device copy, so a CUDA graph can capture it
+    scale = attn_scale(q.shape[-1], q.dtype)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias

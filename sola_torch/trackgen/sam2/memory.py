@@ -105,7 +105,7 @@ class RoPEAttention(nn.Module):
             out = fused_attention(qh.contiguous(), kh.contiguous(),
                                   vh.contiguous(), key_mask=key_mask)
         else:
-            scale = attn_scale(hd, qh.dtype).to(qh.device)
+            scale = attn_scale(hd, qh.dtype)   # a CPU scalar, as sdpa's
             logits = torch.matmul(qh.float(),
                                   kh.float().transpose(-1, -2)) * scale
             if key_mask is not None:

@@ -22,23 +22,24 @@ No op mixes slots, so a slot's results match the sequential predictor's
 whatever its neighbours carry (tests/test_torch_packed.py). The passes are
 Python loops over exactly the longest slot's steps, as in the sequential
 predictor, so there is no scan-length padding and no frame-axis bucket.
+Both paths run one step (``track_step.TrackStep``) on the predictor's banks,
+replayed from CUDA graphs on a CUDA device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from sola_torch.core import mask_ops
-from sola_torch.trackgen.sam2.common import sine_position_encoding
-from sola_torch.trackgen.sam2.video import (Banks, InferenceState,
-                                            SAM2VideoPredictor)
+from sola_torch.trackgen.sam2 import track_step
+from sola_torch.trackgen.sam2.track_step import Banks
+from sola_torch.trackgen.sam2.video import InferenceState, SAM2VideoPredictor
 from sola_torch.utils import profiling
 
-_FAR = -10 ** 6      # frame index of an empty bank slot (video.py's)
 _OUTPUT_ROWS = 64    # tracked (frame, slot) masks resized per call
 
 
@@ -92,8 +93,8 @@ class _Pass:
     gidx: np.ndarray              # (L, b) global feature index
     fidx: np.ndarray              # (L, b) frame index in the slot's video
     active: np.ndarray            # (L, b) the slot tracks this step
-    lows: list = dataclasses.field(default_factory=list)   # (b, 4h, 4w)
-    ptrs: list = dataclasses.field(default_factory=list)   # (b, d)
+    lows: Optional[torch.Tensor] = None   # (L, b, 4h, 4w)
+    ptrs: Optional[torch.Tensor] = None   # (L, b, d)
 
 
 def gate(active: np.ndarray) -> np.ndarray:
@@ -115,130 +116,26 @@ class PackedPropagator:
 
     def __init__(self, predictor: SAM2VideoPredictor):
         self.pred = predictor
-        self.model = predictor.model
         self.cfg = predictor.cfg
         self.b = predictor.obj_batch
-        self.cdt = predictor.compute_dtype
         self.device = predictor.device
+        self.steps = predictor.track_step(self.b)
 
     # ------------------------------------------------------------------
-
-    def _gather(self, feats: dict, gidx: torch.Tensor) -> list:
-        """pix / s0 / s1 of each slot's own frame."""
-        return [feats[k][gidx].to(self.cdt) for k in ("pix", "s0", "s1")]
 
     @torch.no_grad()
     @profiling.spanned("trackgen.cond")
     def cond_init(self, feats: dict, gidx: torch.Tensor,
                   masks: torch.Tensor, cond: np.ndarray):
-        """Consolidate each slot's conditioning frame: mask-as-output on
-        its own frame's features, the memory encode and the initial bank
-        writes. Padding slots run on zero masks and keep ``cond_valid[:,
-        0]`` set, so memory attention never sees a fully masked row.
-        Returns (banks, cond obj_ptr (b, d))."""
-        cfg = self.cfg
-        pix, s0, s1 = self._gather(feats, gidx)
-        out = self.model.mask_as_output(pix, s0, s1, masks.float())
-        mem = self.model.encode_memory(pix, out["high_res_masks"][:, 0])
-        banks = self.pred._empty_banks()
-        banks.cond_mem[:, 0] = mem.to(self.cdt)
-        banks.cond_valid[:, 0] = True
-        rows = torch.arange(self.b, device=self.device)
+        """Empty the banks and consolidate each slot's conditioning frame:
+        mask-as-output on its own frame's features, the memory encode and
+        the initial bank writes. Padding slots run on zero masks and keep
+        ``cond_valid[:, 0]`` set, so memory attention never sees a fully
+        masked row. Returns (banks, cond obj_ptr (b, d))."""
+        self.steps.reset()
         cond_t = torch.from_numpy(cond.astype(np.int64)).to(self.device)
-        pslot = cond_t % cfg.max_obj_ptrs
-        banks.obj_ptrs[rows, pslot] = out["obj_ptr"].to(self.cdt)
-        banks.ptr_frame[rows, pslot] = cond_t
-        banks.ptr_valid[rows, pslot] = True
-        return banks, out["obj_ptr"]
-
-    @torch.no_grad()
-    @profiling.spanned("trackgen.step")
-    def step(self, feats: dict, banks: Banks, seed_buf: torch.Tensor,
-             x: dict, reverse: bool):
-        """One tracked step of every slot, each on its own frame
-        ``x["fidx"][s]``: condition on the banks, decode, encode the new
-        memory and push it and the object pointer into the banks of the
-        slots the schedule lets write. ``x`` holds this step's (b,) device
-        vectors of ``_device_schedule``. Returns (low-res logits (b, 4h,
-        4w) bf16, obj_ptr (b, d))."""
-        cfg, model, cdt, dev = self.cfg, self.model, self.cdt, self.device
-        b, r = self.b, cfg.num_recent
-        stride = max(cfg.memory_stride, 1)
-        pix, s0, s1 = self._gather(feats, x["gidx"])
-        pos = sine_position_encoding(pix.shape[1], pix.shape[2],
-                                     pix.shape[3], device=dev)
-        pos = pos.to(cdt)[None].expand(pix.shape)
-
-        f = x["fidx"]
-        fcol = f[:, None]
-        tpos = (fcol - banks.recent_frame).abs()
-        rec_ok = banks.recent_valid & (tpos >= 1) & (tpos <= r * stride)
-        ptr_ok = banks.ptr_valid & (
-            (fcol - banks.ptr_frame).abs() < cfg.max_obj_ptrs)
-        if reverse:
-            rec_ok &= banks.recent_frame >= fcol
-            ptr_ok &= banks.ptr_frame >= fcol
-        else:
-            rec_ok &= banks.recent_frame <= fcol
-            ptr_ok &= banks.ptr_frame <= fcol
-        tpos = torch.div(tpos + stride - 1, stride,
-                         rounding_mode="floor").clamp(1, r)
-        conditioned = model.condition_features(
-            pix, pos, banks.cond_mem, banks.cond_valid, banks.recent_mem,
-            rec_ok, tpos, banks.obj_ptrs, ptr_ok)
-        coords = torch.zeros((b, 1, 2), dtype=cdt, device=dev)
-        labels = torch.full((b, 1), -1, dtype=torch.long, device=dev)
-        out = model.sam_heads(conditioned, s0, s1, coords, labels, None,
-                              cfg.multimask_output_for_tracking,
-                              suppress_empty_obj=True)
-        mem = model.encode_memory(conditioned,
-                                  out["high_res_masks"][:, 0]).to(cdt)
-        ptr_new = out["obj_ptr"].to(cdt)
-
-        # per-slot bank writes: each slot writes one bank entry, kept as it
-        # was where the schedule's gate says no (no host round trip)
-        rows = torch.arange(b, device=dev)
-
-        def put(bank, idx, on, new):
-            on = on.reshape(on.shape + (1,) * (new.dim() - 1))
-            bank[rows, idx] = torch.where(on, new, bank[rows, idx])
-
-        put(banks.recent_mem, x["slot"], x["push"], mem)
-        put(banks.recent_frame, x["slot"], x["push"], f)
-        banks.recent_valid[rows, x["slot"]] |= x["push"]
-        put(banks.obj_ptrs, x["pslot"], x["write"], ptr_new)
-        put(banks.ptr_frame, x["pslot"], x["write"], f)
-        banks.ptr_valid[rows, x["pslot"]] |= x["write"]
-        if not reverse:
-            # stash the memories of the first R (stride-aligned) post-cond
-            # frames to re-seed the ring for the reverse pass
-            cur = seed_buf[x["sslot"], rows]
-            seed_buf[x["sslot"], rows] = torch.where(
-                x["seed"][:, None, None, None], mem, cur)
-        return (out["low_res_masks"][:, 0].to(torch.bfloat16),
-                out["obj_ptr"])
-
-    def reseed(self, banks: Banks, seed_buf: torch.Tensor,
-               cond_min: np.ndarray, lengths: np.ndarray) -> None:
-        """Reverse pass: each slot's recent ring holds the forward pass's
-        first post-cond memories of its own video (the per-slot form of
-        the sequential predictor's ``_reseed_ring``)."""
-        stride = max(self.cfg.memory_stride, 1)
-        r = self.cfg.num_recent
-        banks.recent_mem.zero_()
-        banks.recent_frame.fill_(_FAR)
-        banks.recent_valid.zero_()
-        for i in range(r):
-            f = cond_min + stride * (i + 1)
-            ok = np.nonzero(f < lengths)[0]
-            if not ok.size:
-                continue
-            rows = torch.from_numpy(ok).to(self.device)
-            slot = torch.from_numpy((f[ok] // stride) % r).to(self.device)
-            banks.recent_mem[rows, slot] = seed_buf[i][rows]
-            banks.recent_frame[rows, slot] = torch.from_numpy(
-                f[ok]).to(self.device)
-            banks.recent_valid[rows, slot] = True
+        ptr = self.steps.condition(feats, gidx, masks, cond_t)
+        return self.steps.banks, ptr
 
     # ------------------------------------------------------------------
 
@@ -267,28 +164,6 @@ class PackedPropagator:
         return _Pass(gidx=gidx.astype(np.int64), fidx=fidx.astype(np.int64),
                      active=active)
 
-    def _device_schedule(self, sched: _Pass, cond: np.ndarray) -> dict:
-        """The (L, b) per-step vectors of one pass on the device, in one
-        upload: feature and frame indices, and each bank write's entry and
-        gate (ring push, pointer write, forward seed stash)."""
-        cfg = self.cfg
-        r, stride = cfg.num_recent, max(cfg.memory_stride, 1)
-        fidx = sched.fidx
-        rel = fidx - cond[None, :]
-        write = gate(sched.active)
-        host = {"gidx": sched.gidx, "fidx": fidx,
-                "slot": (fidx // stride) % r,
-                "push": write & (rel % stride == 0),
-                "pslot": fidx % cfg.max_obj_ptrs,
-                "write": write,
-                "sslot": np.clip(rel // stride - 1, 0, r - 1),
-                "seed": write & (rel >= 1) & (rel <= r * stride)
-                & (rel % stride == 0)}
-        stacked = torch.from_numpy(np.stack(
-            [v.astype(np.int64) for v in host.values()])).to(self.device)
-        return {k: (stacked[i] != 0) if host[k].dtype == bool
-                else stacked[i] for i, k in enumerate(host)}
-
     @torch.no_grad()
     @profiling.spanned("trackgen.round")
     def run_round(self, pack: PackedFeatures, plan: SlotPlan,
@@ -302,7 +177,7 @@ class PackedPropagator:
         sw) bool device tensor}}. ``collect=False`` skips the outputs and
         returns {"banks": the final Banks}, the propagation compute
         alone."""
-        cfg, b, dev = self.cfg, self.b, self.device
+        dev = self.device
         vid = np.maximum(plan.video, 0)
         cond = plan.cond.astype(np.int64)
         cond_gidx = torch.from_numpy(
@@ -312,34 +187,29 @@ class PackedPropagator:
             (np.asarray(cond_masks) > 0.5).astype(np.uint8)).to(dev)
         banks, cond_ptr = self.cond_init(pack.feats, cond_gidx, cond_u8,
                                          cond)
-        h = cfg.feat_hw
-        seed_buf = torch.zeros((cfg.num_recent, b, h, h, cfg.mem_dim),
-                               dtype=self.cdt, device=dev)
         lengths = plan.length.astype(np.int64)
 
         passes = {}
         for reverse in (False, True):
             if reverse:
                 # keep the cond and pointer banks of the forward pass;
-                # re-seed the recent ring from its post-cond memories
-                self.reseed(banks, seed_buf, cond, lengths)
+                # re-seed each slot's recent ring from its post-cond
+                # memories
+                self.steps.reseed(cond, lengths)
             sched = self._schedule(plan, reverse, pack.offsets)
             if sched is None:
                 continue
-            dev_sched = self._device_schedule(sched, cond)
-            n_on = sched.active.sum(axis=1)
-            for t in range(sched.gidx.shape[0]):
-                lo, ptr = self.step(pack.feats, banks, seed_buf,
-                                    {k: v[t] for k, v in dev_sched.items()},
-                                    reverse)
-                profiling.count("trackgen.slots", b)
-                profiling.count("trackgen.slots_active", int(n_on[t]))
-                if collect:
-                    sched.lows.append(lo)
-                    sched.ptrs.append(ptr)
+            rows = track_step.schedule(self.cfg, sched.gidx, sched.fidx,
+                                       gate(sched.active), cond)
+            sched.lows, sched.ptrs = self.steps.run_pass(
+                pack.feats, rows, sched.active.sum(axis=1), reverse,
+                collect)
             passes[reverse] = sched
         if not collect:
-            return {"banks": banks}
+            # a copy: the predictor's banks serve its next round
+            return {"banks": Banks(**{
+                f.name: getattr(banks, f.name).clone()
+                for f in dataclasses.fields(banks)})}
         return self._collect(pack, plan, passes, cond_u8, cond_ptr)
 
     def _collect(self, pack: PackedFeatures, plan: SlotPlan, passes: dict,
@@ -359,7 +229,7 @@ class PackedPropagator:
         for s in slots_on:
             tokens[s][int(plan.cond[s])] = cond_np[s]
         for sched in passes.values():
-            ptr_np = profiling.fetch(torch.stack(sched.ptrs).float())
+            ptr_np = profiling.fetch(sched.ptrs.float())
             for t, s in zip(*np.nonzero(sched.active)):
                 tokens[s][int(sched.fidx[t, s])] = ptr_np[t, s]
 
@@ -379,7 +249,7 @@ class PackedPropagator:
                 masks[s][f] = host[0, j]
                 small_rows[s][f] = small[0, j]
             for sched in passes.values():
-                lows = torch.stack(sched.lows)          # (L, b, 4h, 4w)
+                lows = sched.lows                       # (L, b, 4h, 4w)
                 t_idx, s_idx = np.nonzero(sched.active[:, slots])
                 s_glob = np.asarray(slots)[s_idx]
                 for c in range(0, len(t_idx), _OUTPUT_ROWS):

@@ -60,9 +60,11 @@ class PromptEncoder(nn.Module):
         with zero positional term."""
         cfg = self.cfg
         coords = coords + 0.5  # pixel centers
-        norm = torch.tensor([cfg.input_image_size[1],
-                             cfg.input_image_size[0]], dtype=torch.float32,
-                            device=coords.device)
+        # (W, H) filled on the device: no host-to-device copy, so a CUDA
+        # graph can capture it
+        norm = torch.empty(2, dtype=torch.float32, device=coords.device)
+        norm[0].fill_(cfg.input_image_size[1])
+        norm[1].fill_(cfg.input_image_size[0])
         pe = self.pe_layer(coords / norm)
         pad = (labels == -1)[..., None]
         pe = torch.where(pad, torch.zeros_like(pe), pe)

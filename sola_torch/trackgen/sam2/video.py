@@ -5,14 +5,19 @@ the reference's generation loops drive (init_state / reset_state /
 add_new_mask / propagate_in_video / per-frame ``obj_ptr`` harvesting,
 generate_tokens_grid.py:142-237):
 
-* the state holds fixed-shape device tensors: conditioning slots, a
+* the memory is fixed-shape device tensors: conditioning slots, a
   recent-memory ring keyed by absolute frame index, a 16-slot
   object-pointer bank, and the forward pass's seed buffer that re-seeds the
-  ring for the reverse pass. The banks are updated in place;
+  ring for the reverse pass. The predictor holds them, allocated once and
+  updated in place (``track_step.TrackStep``), and lends them to the state
+  whose batch it tracks: a batch's passes run before the next batch's
+  conditioning;
 * frame features are encoded once per video into stacked device tensors
   shared by every propagation pass;
 * a pass is a Python loop over exactly its frames (the JAX package's
-  ``lax.scan`` over padded, fixed-length segments);
+  ``lax.scan`` over padded, fixed-length segments), each frame one step of
+  ``track_step``, the packed path's step with every slot on the pass's
+  frame, replayed from a CUDA graph on a CUDA device;
 * the object axis is a batch dimension of ``obj_batch`` slots.
 
 Compute runs in ``compute_dtype`` (bf16 by default, the reference's autocast
@@ -32,12 +37,12 @@ import torch
 
 from sola_torch.core import mask_ops
 from sola_torch.core.mask_ops import resize_bilinear
-from sola_torch.trackgen.sam2.common import sine_position_encoding
+from sola_torch.trackgen.sam2 import track_step
 from sola_torch.trackgen.sam2.image_encoder import normalize_image
 from sola_torch.trackgen.sam2.model import SAM2Config, SAM2Model
+from sola_torch.trackgen.sam2.track_step import Banks, TrackStep
 from sola_torch.utils import profiling
 
-_FAR = -10 ** 6  # frame index of an empty bank slot
 _OUTPUT_CHUNK = 16  # frames resized to video resolution per call
 
 
@@ -70,34 +75,19 @@ def encode_raw(model: SAM2Model, raw: torch.Tensor, compute_dtype) -> dict:
 
 
 @dataclasses.dataclass
-class Banks:
-    """Memory of one batch of objects; every tensor's axis 0 is the object
-    slot."""
-    cond_mem: torch.Tensor       # (B, C, h, w, mem)
-    cond_valid: torch.Tensor     # (B, C) bool
-    recent_mem: torch.Tensor     # (B, R, h, w, mem)
-    recent_frame: torch.Tensor   # (B, R) long
-    recent_valid: torch.Tensor   # (B, R) bool
-    obj_ptrs: torch.Tensor       # (B, P, d)
-    ptr_frame: torch.Tensor      # (B, P) long
-    ptr_valid: torch.Tensor      # (B, P) bool
-
-
-@dataclasses.dataclass
 class InferenceState:
     num_frames: int
     obj_batch: int
     features: dict               # stacked tensors: pix/s0/s1 (T, h, w, c)
     pos: torch.Tensor            # (h, w, d) sine PE (frame-independent)
     orig_hw: tuple
-    banks: Optional[Banks] = None
+    banks: Optional[Banks] = None   # the predictor's, while it banks us
     prompts: dict = dataclasses.field(default_factory=dict)
     output_tokens: dict = dataclasses.field(default_factory=dict)
     obj_ids: list = dataclasses.field(default_factory=list)
     # host-cached cond-frame outputs keyed (frame_idx, output_mode): the
     # reverse pass re-yields the output the forward pass fetched
     cond_host: dict = dataclasses.field(default_factory=dict)
-    seed_buf: Optional[torch.Tensor] = None   # (R, B, h, w, mem) fwd seeds
     seed_frames: Optional[np.ndarray] = None
     # device-resident canonical small masklets of "masks"-mode passes:
     # list of (frame_idxs, (n, n_obj, sh, sw) bool)
@@ -118,6 +108,18 @@ class SAM2VideoPredictor:
         self.feature_dtype = feature_dtype
         self.compute_dtype = compute_dtype
         self.encode_chunk = encode_chunk
+        self._steps: dict = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if track_step.usable(self.device) else None)
+
+    def track_step(self, b: Optional[int] = None) -> TrackStep:
+        """The propagation step of ``b`` slots (``obj_batch`` by default)
+        with its banks, buffers and graphs, made once; the steps of every
+        slot count share one graph memory pool."""
+        b = self.obj_batch if b is None else b
+        if b not in self._steps:
+            self._steps[b] = TrackStep(self, b, self._graph_pool)
+        return self._steps[b]
 
     # ------------------------------------------------------------------
     # Protocol
@@ -155,7 +157,6 @@ class SAM2VideoPredictor:
         state.prompts = {}
         state.output_tokens = {}
         state.obj_ids = []
-        state.seed_buf = None
         state.seed_frames = None
         state.small_parts = None
         state.cond_host = {}
@@ -189,25 +190,6 @@ class SAM2VideoPredictor:
 
     # ------------------------------------------------------------------
 
-    def _empty_banks(self) -> Banks:
-        cfg = self.cfg
-        b, h, dev, cdt = (self.obj_batch, cfg.feat_hw, self.device,
-                          self.compute_dtype)
-        r, p = cfg.num_recent, cfg.max_obj_ptrs
-
-        def z(*shape, dtype=cdt):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-
-        return Banks(
-            cond_mem=z(b, cfg.max_cond_frames, h, h, cfg.mem_dim),
-            cond_valid=z(b, cfg.max_cond_frames, dtype=torch.bool),
-            recent_mem=z(b, r, h, h, cfg.mem_dim),
-            recent_frame=torch.full((b, r), _FAR, device=dev),
-            recent_valid=z(b, r, dtype=torch.bool),
-            obj_ptrs=z(b, p, cfg.d_model),
-            ptr_frame=torch.full((b, p), _FAR, device=dev),
-            ptr_valid=z(b, p, dtype=torch.bool))
-
     def _prompt_masks(self, state: InferenceState,
                       frame_idx: int) -> torch.Tensor:
         """(obj_batch, S, S) uint8 device prompt masks of one frame."""
@@ -219,113 +201,31 @@ class SAM2VideoPredictor:
                 masks[slot] = m > 0.5
         return torch.from_numpy(masks).to(self.device)
 
-    def _frame_features(self, state: InferenceState, frame_idx: int):
-        """pix / s0 / s1 of one frame, broadcast over the object slots."""
-        b = self.obj_batch
-        return [state.features[k][frame_idx].to(self.compute_dtype)[None]
-                .expand(b, *state.features[k].shape[1:])
-                for k in ("pix", "s0", "s1")]
-
     @torch.no_grad()
     @profiling.spanned("trackgen.cond")
     def _run_cond_frames(self, state: InferenceState) -> None:
-        """Consolidate every prompted frame into a conditioning slot:
-        mask-as-output, memory encode and the bank writes."""
-        cfg = self.cfg
-        banks = self._empty_banks()
+        """Consolidate every prompted frame into a conditioning slot of the
+        emptied banks: mask-as-output, memory encode and the bank writes."""
+        steps = self.track_step()
+        steps.reset()
         for slot, frame_idx in enumerate(
-                sorted(state.prompts.keys())[:cfg.max_cond_frames]):
-            pix, s0, s1 = self._frame_features(state, frame_idx)
-            masks = self._prompt_masks(state, frame_idx)
-            out = self.model.mask_as_output(pix, s0, s1, masks.float())
-            mem = self.model.encode_memory(pix, out["high_res_masks"][:, 0])
-            banks.cond_mem[:, slot] = mem.to(self.compute_dtype)
-            banks.cond_valid[:, slot] = True
-            pslot = frame_idx % cfg.max_obj_ptrs
-            banks.obj_ptrs[:, pslot] = out["obj_ptr"].to(self.compute_dtype)
-            banks.ptr_frame[:, pslot] = frame_idx
-            banks.ptr_valid[:, pslot] = True
-            state.output_tokens[frame_idx] = out["obj_ptr"]
-        state.banks = banks
+                sorted(state.prompts.keys())[:self.cfg.max_cond_frames]):
+            frames = torch.full((self.obj_batch,), frame_idx,
+                                dtype=torch.long, device=self.device)
+            state.output_tokens[frame_idx] = steps.condition(
+                state.features, frames, self._prompt_masks(state, frame_idx),
+                frames, slot)
+        steps.holder = id(state)
+        state.banks = steps.banks
 
-    @torch.no_grad()
-    @profiling.spanned("trackgen.step")
-    def _track_frame(self, state: InferenceState, banks: Banks,
-                     seed_buf: torch.Tensor, cond_min: int, frame_idx: int,
-                     reverse: bool):
-        """One tracked frame: condition on the banks, decode, encode the new
-        memory and push it and the object pointer into the banks.
-        Returns (low-res logits (B, 4h, 4w) bf16, obj_ptr (B, d))."""
-        cfg = self.cfg
-        model = self.model
-        cdt = self.compute_dtype
-        pix, s0, s1 = self._frame_features(state, frame_idx)
-        pos = sine_position_encoding(pix.shape[1], pix.shape[2],
-                                     pix.shape[3], device=pix.device)
-        pos = pos.to(cdt)[None].expand(pix.shape)
-
-        stride = max(cfg.memory_stride, 1)
-        r = cfg.num_recent
-        tpos = (frame_idx - banks.recent_frame).abs()
-        rec_ok = banks.recent_valid & (tpos >= 1) & (tpos <= r * stride)
-        ptr_ok = banks.ptr_valid & (
-            (frame_idx - banks.ptr_frame).abs() < cfg.max_obj_ptrs)
-        if reverse:
-            rec_ok &= banks.recent_frame >= frame_idx
-            ptr_ok &= banks.ptr_frame >= frame_idx
-        else:
-            rec_ok &= banks.recent_frame <= frame_idx
-            ptr_ok &= banks.ptr_frame <= frame_idx
-        # temporal-position index in memory-stride units
-        tpos = torch.div(tpos + stride - 1, stride,
-                         rounding_mode="floor").clamp(1, r)
-        conditioned = model.condition_features(
-            pix, pos, banks.cond_mem, banks.cond_valid, banks.recent_mem,
-            rec_ok, tpos, banks.obj_ptrs, ptr_ok)
-        b = self.obj_batch
-        coords = torch.zeros((b, 1, 2), dtype=cdt, device=pix.device)
-        labels = torch.full((b, 1), -1, dtype=torch.long, device=pix.device)
-        out = model.sam_heads(conditioned, s0, s1, coords, labels, None,
-                              cfg.multimask_output_for_tracking,
-                              suppress_empty_obj=True)
-        mem = model.encode_memory(conditioned,
-                                  out["high_res_masks"][:, 0]).to(cdt)
-
-        # The loop visits exactly the pass's frames, so every step pushes;
-        # the JAX package's `active` gate for padded scan steps has nothing
-        # to gate here. With memory_stride r only every r-th frame enters
-        # the ring.
-        if (frame_idx - cond_min) % stride == 0:
-            slot = (frame_idx // stride) % r
-            banks.recent_mem[:, slot] = mem
-            banks.recent_frame[:, slot] = frame_idx
-            banks.recent_valid[:, slot] = True
-        pslot = frame_idx % cfg.max_obj_ptrs
-        banks.obj_ptrs[:, pslot] = out["obj_ptr"].to(cdt)
-        banks.ptr_frame[:, pslot] = frame_idx
-        banks.ptr_valid[:, pslot] = True
-        # forward pass: stash the memories of the first R (stride-aligned)
-        # post-cond frames to re-seed the ring for the reverse pass
-        rel = frame_idx - cond_min
-        if not reverse and 1 <= rel <= r * stride and rel % stride == 0:
-            seed_buf[rel // stride - 1] = mem
-        return (out["low_res_masks"][:, 0].to(torch.bfloat16),
-                out["obj_ptr"])
-
-    def _reseed_ring(self, state: InferenceState, banks: Banks) -> None:
+    def _reseed_ring(self, state: InferenceState) -> None:
         """Reverse pass: the recent ring holds the forward pass's first
         post-cond memories (empty when no forward pass ran)."""
-        banks.recent_mem.zero_()
-        banks.recent_frame.fill_(_FAR)
-        banks.recent_valid.zero_()
-        if state.seed_buf is None or state.seed_frames is None:
-            return
-        stride = max(self.cfg.memory_stride, 1)
-        for i, f in enumerate(state.seed_frames):
-            slot = (int(f) // stride) % self.cfg.num_recent
-            banks.recent_mem[:, slot] = state.seed_buf[i]
-            banks.recent_frame[:, slot] = int(f)
-            banks.recent_valid[:, slot] = True
+        b = self.obj_batch
+        ran = state.seed_frames is not None
+        self.track_step().reseed(
+            np.full(b, min(state.prompts), np.int64),
+            np.full(b, state.num_frames if ran else 0, np.int64))
 
     def _masks_out(self, lo: torch.Tensor, hw: tuple, small_hw: tuple):
         """(n, n_obj, 4h, 4w) logits -> full-res uint8 host masks and the
@@ -352,8 +252,13 @@ class SAM2VideoPredictor:
         if not state.prompts:
             return
         cond_idx = min(state.prompts.keys())
+        steps = self.track_step()
         if state.banks is None:
             self._run_cond_frames(state)
+        elif steps.holder != id(state):
+            raise RuntimeError(
+                "the predictor's banks hold another batch since this state's "
+                "conditioning: reset_state and add its prompts again")
 
         start = start_frame_idx if start_frame_idx is not None else cond_idx
         if reverse:
@@ -391,24 +296,20 @@ class SAM2VideoPredictor:
         if not frame_idxs:
             return
 
-        banks = state.banks
         if reverse:
-            self._reseed_ring(state, banks)
-        r, h = cfg.num_recent, cfg.feat_hw
-        seed_buf = torch.zeros((r, self.obj_batch, h, h, cfg.mem_dim),
-                               dtype=self.compute_dtype, device=self.device)
-        lows, ptrs = [], []
-        n_on = min(n_obj, self.obj_batch)
-        for fidx in frame_idxs:
-            lo, ptr = self._track_frame(state, banks, seed_buf, cond_idx,
-                                        fidx, reverse)
-            profiling.count("trackgen.slots", self.obj_batch)
-            profiling.count("trackgen.slots_active", n_on)
-            lows.append(lo)
-            ptrs.append(ptr)
+            self._reseed_ring(state)
+        # every slot on the pass's frame; the loop visits exactly the
+        # pass's frames, so every slot writes at every step
+        b = self.obj_batch
+        frames = np.repeat(np.asarray(frame_idxs, np.int64)[:, None], b, 1)
+        sched = track_step.schedule(cfg, frames, frames,
+                                    np.ones(frames.shape, bool),
+                                    np.full(b, cond_idx, np.int64))
+        lows, ptrs = steps.run_pass(
+            state.features, sched, np.full(len(frame_idxs), min(n_obj, b)),
+            reverse, collect=output_mode != "none")
         if not reverse:
-            stride = max(cfg.memory_stride, 1)
-            state.seed_buf = seed_buf
+            stride, r = max(cfg.memory_stride, 1), cfg.num_recent
             state.seed_frames = np.asarray(
                 [cond_idx + stride * (i + 1) for i in range(r)
                  if cond_idx + stride * (i + 1) < state.num_frames],
@@ -418,8 +319,8 @@ class SAM2VideoPredictor:
             for fidx in frame_idxs:
                 yield fidx, list(state.obj_ids), None
             return
-        toks = profiling.fetch(torch.stack(ptrs, dim=0).float())
-        low_res = torch.stack(lows, dim=0)[:, :n_obj]
+        toks = profiling.fetch(ptrs.float())
+        low_res = lows[:, :n_obj]
         for s in range(0, len(frame_idxs), _OUTPUT_CHUNK):
             e = min(s + _OUTPUT_CHUNK, len(frame_idxs))
             host, small = self._masks_out(low_res[s:e], (oh, ow), small_hw)

@@ -48,6 +48,7 @@ import torch
 
 from sola_torch.models.layers import DropoutRng
 from sola_torch.utils import profiling
+from sola_torch.utils.cuda_graphs import capture
 
 PARTS = ("total", "bce", "alignment")
 
@@ -116,11 +117,10 @@ class StepGraphs:
             del warm_loss
             forward = torch.cuda.CUDAGraph()
             forward.register_generator_state(self.mask_gen)
-            forward.capture_begin(pool=self.pool)
-            loss, parts = losses(inputs, DropoutRng(self.seeds,
-                                                    self.mask_gen))
-            parts = torch.stack([parts[k].detach() for k in PARTS])
-            forward.capture_end()
+            with capture(forward, self.pool):
+                loss, parts = losses(inputs, DropoutRng(self.seeds,
+                                                        self.mask_gen))
+                parts = torch.stack([parts[k].detach() for k in PARTS])
         current.wait_stream(self.stream)
         return _Shape(inputs, forward, parts, None), loss
 
@@ -129,10 +129,9 @@ class StepGraphs:
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
             backward = torch.cuda.CUDAGraph()
-            backward.capture_begin(pool=self.pool)
-            torch._foreach_copy_(self.grads,
-                                 list(torch.autograd.grad(loss, self.params)))
-            backward.capture_end()
+            with capture(backward, self.pool):
+                torch._foreach_copy_(
+                    self.grads, list(torch.autograd.grad(loss, self.params)))
         current.wait_stream(self.stream)
         shape.backward = backward
 
@@ -141,9 +140,8 @@ class StepGraphs:
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
             update = torch.cuda.CUDAGraph()
-            update.capture_begin(pool=self.pool)
-            norm = self.optimizer.step()
-            update.capture_end()
+            with capture(update, self.pool):
+                norm = self.optimizer.step()
         current.wait_stream(self.stream)
         self.update, self.norm = update, norm
 
