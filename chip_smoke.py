@@ -3362,11 +3362,12 @@ SMALL_GT = {
 
 def run_packed_small_reference(fa) -> dict:
     """Phase 14: the packed paths at SAM2Config.tiny_test, fp32, the flash
-    kernel's thresholds lowered so it runs: packed grid tracks, packed
-    expressions, sequential and packed GT on the card against the CPU (the
-    plain versions); on the card, packed against sequential under
-    tests/test_packed.py's bounds; and a planted fault (bank pushes on a
-    slot's idle steps) that must break the GT agreement."""
+    kernel's thresholds lowered so it runs: grid tracks sequential and
+    packed, expressions and GT at pack widths 1 (the CLIs' default) and 8,
+    on the card against the CPU (the plain versions); on the card, width
+    8 against sequential / width 1 under tests/test_packed.py's bounds;
+    and a planted fault (bank pushes on a slot's idle steps) that must
+    break the GT agreement."""
     from sola_torch.core import rle
     from sola_torch.trackgen import (engine, packed_engine, tokens_gdino,
                                      tokens_gt)
@@ -3431,14 +3432,11 @@ def run_packed_small_reference(fa) -> dict:
         state = pred.init_state(small_video(t, hw, seed))
         kw = dict(bin_size=1, n_max_tracks=8, log=lambda s: None)
         track_root = os.path.join(out_root, "sam2_tracks")
-        if packed_run:
-            census = tokens_gdino.run_expressions_packed(
-                pred, state, vid, ["0", "1", "2"], path, track_root,
-                "mevis", "valid_u", t, **kw)
-        else:
-            census = {e: tokens_gdino.run_expression(
-                pred, state, vid, e, path, track_root, "mevis", "valid_u",
-                t, **kw) for e in ("0", "1", "2")}
+        # pack width 8 (every expression in one group) or 1 (the CLI's
+        # default, one expression a group)
+        census = tokens_gdino.run_video_packed(
+            pred, state, vid, ["0", "1", "2"], path, track_root, "mevis",
+            "valid_u", t, expr_pack=8 if packed_run else 1, **kw)
         return read_tracks(track_root), census
 
     def gt(pred, out_root, packed_run):
@@ -3452,16 +3450,13 @@ def run_packed_small_reference(fa) -> dict:
                           "state": pred.init_state(small_video(t, hw,
                                                                seed))})
         track_root = os.path.join(out_root, "sam2_tracks")
-        if packed_run:
-            census = tokens_gt.run_videos_packed_gt(
-                pred, items, track_root, "mevis", "train",
-                save_prec_rec_iou=True, log=lambda s: None)
-        else:
-            census = {it["video_id"]: tokens_gt.run_video(
-                pred, it["state"], it["video_id"], it["gt_masklets"],
-                it["n_frames"], track_root, "mevis", "train",
-                save_prec_rec_iou=True, log=lambda s: None)
-                for it in items}
+        # every video in one pack, or one video a call (the CLI's default
+        # pack width 1)
+        census = {}
+        for group in ([items] if packed_run else [[it] for it in items]):
+            census.update(tokens_gt.run_videos_packed_gt(
+                pred, group, track_root, "mevis", "train",
+                save_prec_rec_iou=True, log=lambda s: None))
         return read_tracks(track_root), census
 
     os.makedirs(root)

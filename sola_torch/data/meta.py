@@ -7,7 +7,11 @@ On-disk formats are those the reference consumes (dataloader.py:202-238):
   "anno_id"}}}`` and ``mask_dict.json`` mapping anno_id -> per-frame RLE list.
 * Ref-YTVOS / Ref-DAVIS: ``<root>/<name>/meta_expressions/<split>/
   meta_expressions.json``; expressions carry ``obj_id`` instead of
-  ``anno_id``.
+  ``anno_id``, and GT masks are palette PNGs under
+  ``<root>/<name>/<split>/Annotations/<video>``.
+
+Every dataset keeps its frames under ``<root>/<name>/<split>/JPEGImages``.
+The track-generation CLIs take every one of these paths from here.
 """
 
 from __future__ import annotations
@@ -59,14 +63,35 @@ def load_meta(data_root: str, data_name: str, data_type: str) -> dict:
         return json.load(f)
 
 
+def read_mask_dict(data_root: str, data_name: str, data_type: str) -> dict:
+    """A split's ``mask_dict.json``, whatever the split (the token CLIs
+    read it on request; FileNotFoundError where the split has none)."""
+    path = os.path.join(data_root, data_name, data_type, "mask_dict.json")
+    with open(path, "r") as f:
+        return json.load(f)
+
+
 def load_mask_dict(data_root: str, data_name: str,
                    data_type: str) -> Optional[dict]:
     """MeViS GT RLE dict; present for train/valid_u only (dataloader.py:208-210)."""
     if data_name == "mevis" and data_type in ("train", "valid_u"):
-        path = os.path.join(data_root, data_name, data_type, "mask_dict.json")
-        with open(path, "r") as f:
-            return json.load(f)
+        return read_mask_dict(data_root, data_name, data_type)
     return None
+
+
+def frames_dir(data_root: str, data_name: str, data_type: str,
+               video_id: str) -> str:
+    """A video's frame images, ``<root>/<name>/<split>/JPEGImages/<video>``
+    for every dataset; an empty ``video_id`` gives the split's frame root."""
+    return os.path.join(data_root, data_name, data_type, "JPEGImages",
+                        video_id)
+
+
+def annotations_dir(data_root: str, data_name: str, data_type: str,
+                    video_id: str) -> str:
+    """A Ref-YTVOS / Ref-DAVIS video's palette-PNG GT masks."""
+    return os.path.join(data_root, data_name, data_type, "Annotations",
+                        video_id)
 
 
 def build_samples(meta: dict, data_name: str) -> list[Sample]:

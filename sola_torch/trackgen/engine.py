@@ -7,15 +7,17 @@ The shared state machine behind both grid and gdino token generation
 * prompt statuses: 0 untracked, 1 tracked, 2 filtered (deduped), 3 not used;
 * greedy same-frame batches of up to ``batch_size`` prompts (2 for videos
   longer than 200 frames), capped by ``n_max_tracks``;
-* per batch: reset state -> add masks -> propagate forward + reverse ->
-  binarize logits at 0 -> harvest per-frame object tokens;
+* per batch: reset state -> add masks -> propagate forward + reverse in
+  the predictor's masks mode (logits thresholded at 0 on the device) ->
+  harvest per-frame object tokens and the device-resident small masklets;
 * dedup: any untracked prompt whose mask IoU against a new masklet's frame
   (at the <=960x540 canonical size, nearest-resampled prompt) exceeds
   ``miou_thresh`` is filtered;
 * returns a census compatible with the reference's runtime_info entries.
 
-The engine is backend-agnostic: it drives any VideoPredictorProtocol (the
-SAM2 video predictor or the test fake).
+``generate_tracks`` drives one video on a ``SAM2VideoPredictor`` (grid's
+per-video route); ``packed_engine`` drives the same state machine over
+``PackedPropagator`` rounds.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def _batched_dedup_ious(masklet_small, prompts: list,
                         hw: tuple) -> np.ndarray:
     """IoU of each prompt's mask against the new masklet at the prompt's
     frame, for all remaining prompts in one batched computation on the
-    masklet's device (a host tensor or array for oracle predictors)."""
+    masklet's device."""
     small = []
     for p in prompts:
         if getattr(p, "_small", None) is None or p._small.shape != hw:
@@ -104,14 +106,13 @@ def select_batch(prompts: Sequence[PromptMask], *, limit: int,
 @profiling.spanned("trackgen.dedup")
 def finalize_batch(batch: Sequence[PromptMask], masklets: dict,
                    tokens_by_frame: dict, n_frames: int,
-                   small_masklets: Optional[dict] = None) -> list:
+                   small_masklets: dict) -> list:
     """Assemble TrackResults for a tracked batch: stacked full-res masklet,
     canonical <=960x540 resize, per-frame token matrix.
 
-    ``small_masklets``: optional {prompt_id: (T, sh, sw) device tensor} —
-    the predictor's device-resident smalls (get_small_masklets). Without
-    it the small is recomputed from the host masklet (oracle/fake
-    predictors)."""
+    ``small_masklets``: {prompt_id: (T, sh, sw) device tensor}, the
+    canonical resize kept on the device by the predictor or the packed
+    round."""
     assert len(tokens_by_frame) == n_frames, (
         f"tokens missing for frames: have {len(tokens_by_frame)} of "
         f"{n_frames}")
@@ -121,15 +122,11 @@ def finalize_batch(batch: Sequence[PromptMask], masklets: dict,
         assert all(m is not None for m in frames), \
             f"masklet frames missing for prompt {p.prompt_id}"
         masklet = np.stack(frames, axis=0)
-        if small_masklets is not None and p.prompt_id in small_masklets:
-            small = small_masklets[p.prompt_id]  # device-resident
-        else:
-            small = mask_ops.reshape_masklet_auto(
-                masklet.astype(np.float32)).numpy()
         toks = np.stack(
             [np.asarray(tokens_by_frame[f][i])
              for f in range(n_frames)], axis=0)
-        results.append(TrackResult(p.prompt_id, masklet, small, toks))
+        results.append(TrackResult(p.prompt_id, masklet,
+                                   small_masklets[p.prompt_id], toks))
     return results
 
 
@@ -190,14 +187,13 @@ def generate_tracks(
     large_video_threshold: int = 200,
     large_video_batch: int = 2,
     on_track: Optional[Callable[[TrackResult], None]] = None,
-    scan_all_for_same_frame: bool = True,
     log: Callable[[str], None] = lambda s: None,
 ) -> dict:
     """Run the full tracking loop; calls ``on_track`` for each new track.
 
-    ``scan_all_for_same_frame``: grid flavor scans the whole prompt list for
-    same-frame prompts (generate_tokens_grid.py:165-186); the gdino flavor
-    stops at the first frame mismatch (generate_tokens_gdino.py:178-202).
+    Grid flavor: each batch scans the whole prompt list for same-frame
+    prompts (generate_tokens_grid.py:165-186); the gdino flavor, which
+    stops at the first frame mismatch, runs through ``packed_engine``.
     """
     start_time = time.time()
     limit = large_video_batch if n_frames > large_video_threshold \
@@ -211,7 +207,7 @@ def generate_tracks(
         batch, frame_idx = select_batch(
             prompts, limit=limit, n_tracked=n_tracked,
             n_max_tracks=n_max_tracks,
-            scan_all_for_same_frame=scan_all_for_same_frame)
+            scan_all_for_same_frame=True)
         if frame_idx is None:
             break
         n_tracked += len(batch)
@@ -224,41 +220,19 @@ def generate_tracks(
         predictor.reset_state(state)
         masklets = {p.prompt_id: [None] * n_frames for p in batch}
         for p in batch:
-            out_frame_idx, _, out_logits = predictor.add_new_mask(
-                state, int(frame_idx), p.prompt_id, p.segmentation)
-        # binary-mask output mode when the predictor supports it (the real
-        # SAM2 video predictor): skips per-frame dense float logits that
-        # this loop would immediately re-threshold; logits mode otherwise
-        # (test/oracle predictors)
-        import inspect
-        masks_mode = "output_mode" in inspect.signature(
-            predictor.propagate_in_video).parameters
-
-        def _passes():
-            if masks_mode:
-                for fidx, _, m in predictor.propagate_in_video(
-                        state, output_mode="masks"):
-                    yield fidx, m
-                for fidx, _, m in predictor.propagate_in_video(
-                        state, reverse=True, output_mode="masks"):
-                    yield fidx, m
-            else:
-                for rev in (False, True):
-                    for fidx, _, logits in predictor.propagate_in_video(
-                            state, reverse=rev):
-                        yield fidx, (np.asarray(logits)[:, 0]
-                                     > 0.0).astype(np.uint8)
-
-        for out_frame_idx, masks in _passes():
-            for i, p in enumerate(batch):
-                masklets[p.prompt_id][out_frame_idx] = masks[i]
+            predictor.add_new_mask(state, int(frame_idx), p.prompt_id,
+                                   p.segmentation)
+        # binary masks thresholded on the device: no per-frame dense float
+        # logits for this loop to re-threshold
+        for reverse in (False, True):
+            for out_frame_idx, _, masks in predictor.propagate_in_video(
+                    state, reverse=reverse, output_mode="masks"):
+                for i, p in enumerate(batch):
+                    masklets[p.prompt_id][out_frame_idx] = masks[i]
 
         tokens_by_frame = predictor.get_output_tokens(state)
-        smalls = None
-        if masks_mode and hasattr(predictor, "get_small_masklets"):
-            dev = predictor.get_small_masklets(state)  # (T, n, sh, sw) bool
-            smalls = {p.prompt_id: dev[:, i]
-                      for i, p in enumerate(batch)}
+        dev = predictor.get_small_masklets(state)  # (T, n, sh, sw) bool
+        smalls = {p.prompt_id: dev[:, i] for i, p in enumerate(batch)}
         results = finalize_batch(batch, masklets, tokens_by_frame, n_frames,
                                  small_masklets=smalls)
 

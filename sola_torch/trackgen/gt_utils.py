@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 
 from sola_torch.core import mask_ops, rle
+from sola_torch.data import meta as meta_lib
 from sola_torch.utils import profiling
 
 
@@ -57,6 +58,24 @@ def get_masklets_ytbvos(masklet_dir: str, reshape: bool = False) -> dict:
             masklet = np.asarray(mask_ops.reshape_masklet_auto(masklet))
         out[str(int(obj_id))] = masklet
     return out
+
+
+def load_gt_masklets(data_root: str, data_name: str, data_type: str,
+                     video_id: str, meta: dict, mask_dict: Optional[dict],
+                     reshape: bool) -> dict:
+    """A video's GT masklets for the token CLIs: MeViS's from
+    ``mask_dict``, the others' from their palette PNGs; ``reshape`` scales
+    them to the canonical <=960x540 size that grid and gdino score at (the
+    GT CLI scores at full resolution)."""
+    if data_name != "mevis":
+        return get_masklets_ytbvos(
+            meta_lib.annotations_dir(data_root, data_name, data_type,
+                                     video_id), reshape=reshape)
+    gt = get_masklets(video_id, meta, mask_dict)
+    if reshape:
+        gt = {k: np.asarray(mask_ops.reshape_masklet_auto(v))
+              for k, v in gt.items()}
+    return gt
 
 
 def get_prompt_masks(masklet: np.ndarray,

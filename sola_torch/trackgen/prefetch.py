@@ -9,8 +9,9 @@ encoder launches) while the main thread propagates video k. PyTorch
 launches from two threads onto the device queue; the threads contend only
 for the host and the device, which is the overlap wanted.
 
-Depth is 1 (one video ahead): deeper lookahead buys nothing once encode
-time <= propagation time. Pass ``enabled=False`` (CLI
+Depth is one group (``groups``: the next video, or the next pack of
+videos): deeper lookahead buys nothing once encode time <= propagation
+time. Pass ``enabled=False`` (CLI
 ``--prefetch_videos 0``) to restore the strictly serial order, e.g. for
 memory-tight long-video runs.
 """
@@ -18,7 +19,7 @@ memory-tight long-video runs.
 from __future__ import annotations
 
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Optional
+from typing import Callable, Iterator, Optional
 
 
 class StatePrefetcher:
@@ -45,6 +46,19 @@ class StatePrefetcher:
         if fut is not None:
             return fut.result()
         return self.predictor.init_state(None, video_path=frames_dir)
+
+    def groups(self, keys: list, n: int,
+               frames_dir_of: Callable[[str], str]) -> Iterator[tuple]:
+        """``keys`` in groups of ``n``, each yielded as ``(group,
+        states)``. Before a group is yielded its encodes and the next
+        group's are scheduled, so the next group encodes while the caller
+        tracks this one; disabled, each state encodes inline."""
+        for g0 in range(0, len(keys), n):
+            for key in keys[g0:g0 + 2 * n]:
+                self.schedule(key, frames_dir_of(key))
+            group = keys[g0:g0 + n]
+            yield group, [self.get(key, frames_dir_of(key))
+                          for key in group]
 
     def close(self) -> None:
         if self._pool is not None:

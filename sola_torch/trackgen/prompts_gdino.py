@@ -31,7 +31,6 @@ import numpy as np
 from sola_torch.core import mask_ops, rle
 from sola_torch.data import meta as meta_lib
 from sola_torch.trackgen.sam2.image import compute_stability_score
-from sola_torch.trackgen.tokens_grid import DATA_DIR_DICT
 from sola_torch.utils import profiling
 
 
@@ -249,24 +248,14 @@ def main(argv=None, generator_factory=None) -> None:
     args = parser.parse_args(argv)
 
     assert args.data_type in meta_lib.DATA_TYPES[args.dataset]
-    data_dir = os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
-                            args.data_type)
+    data_root = os.path.join(args.data_root, "datasets")
     prompt_dir = os.path.join(args.output_root, "sam2_prompts/gdino_prompts",
                               args.dataset, args.data_type)
     os.makedirs(prompt_dir, exist_ok=True)
 
-    if args.dataset == "mevis":
-        with open(os.path.join(data_dir, "meta_expressions.json")) as f:
-            meta = json.load(f)
-    else:
-        with open(os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
-                               "meta_expressions", args.data_type,
-                               "meta_expressions.json")) as f:
-            meta = json.load(f)
-    mask_dict = None
-    if args.dataset == "mevis" and args.data_type in ("train", "valid_u"):
-        with open(os.path.join(data_dir, "mask_dict.json")) as f:
-            mask_dict = json.load(f)
+    meta = meta_lib.load_meta(data_root, args.dataset, args.data_type)
+    mask_dict = meta_lib.load_mask_dict(data_root, args.dataset,
+                                        args.data_type)
 
     if generator_factory is None:
         generator_factory = _default_generator_factory(args)
@@ -279,8 +268,9 @@ def main(argv=None, generator_factory=None) -> None:
         out_path = os.path.join(prompt_dir, f"{video_id}.json")
         if os.path.exists(out_path):
             continue
-        prompt_video(generator, os.path.join(data_dir, "JPEGImages",
-                                             video_id),
+        prompt_video(generator,
+                     meta_lib.frames_dir(data_root, args.dataset,
+                                         args.data_type, video_id),
                      video_id, meta["videos"][video_id]["expressions"],
                      args.bin_size, out_path, mask_dict)
 

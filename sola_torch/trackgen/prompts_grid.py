@@ -21,7 +21,6 @@ import torch
 from sola_torch.core import mask_ops, rle
 from sola_torch.data import meta as meta_lib
 from sola_torch.device import resolve_device
-from sola_torch.trackgen.tokens_grid import DATA_DIR_DICT
 
 
 def suppress_parts(masks: np.ndarray, thresh: float = 0.7,
@@ -107,8 +106,8 @@ def main(argv=None, amg_factory=None) -> None:
     device = resolve_device(args.device)
 
     assert args.data_type in meta_lib.DATA_TYPES[args.dataset]
-    data_dir = os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
-                            args.data_type, "JPEGImages")
+    data_dir = meta_lib.frames_dir(os.path.join(args.data_root, "datasets"),
+                                   args.dataset, args.data_type, "")
     prompt_dir = os.path.join(args.output_root, "sam2_prompts/grid_prompts",
                               args.dataset, args.data_type)
     os.makedirs(prompt_dir, exist_ok=True)

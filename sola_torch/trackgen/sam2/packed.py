@@ -36,7 +36,6 @@ import torch
 
 from sola_torch.core import mask_ops
 from sola_torch.trackgen.sam2 import track_step
-from sola_torch.trackgen.sam2.track_step import Banks
 from sola_torch.trackgen.sam2.video import InferenceState, SAM2VideoPredictor
 from sola_torch.utils import profiling
 
@@ -131,11 +130,10 @@ class PackedPropagator:
         mask-as-output on its own frame's features, the memory encode and
         the initial bank writes. Padding slots run on zero masks and keep
         ``cond_valid[:, 0]`` set, so memory attention never sees a fully
-        masked row. Returns (banks, cond obj_ptr (b, d))."""
+        masked row. Returns the cond obj_ptr (b, d)."""
         self.steps.reset()
         cond_t = torch.from_numpy(cond.astype(np.int64)).to(self.device)
-        ptr = self.steps.condition(feats, gidx, masks, cond_t)
-        return self.steps.banks, ptr
+        return self.steps.condition(feats, gidx, masks, cond_t)
 
     # ------------------------------------------------------------------
 
@@ -167,16 +165,15 @@ class PackedPropagator:
     @torch.no_grad()
     @profiling.spanned("trackgen.round")
     def run_round(self, pack: PackedFeatures, plan: SlotPlan,
-                  cond_masks: np.ndarray, collect: bool = True) -> dict:
+                  cond_masks: np.ndarray) -> dict:
         """One packed round: consolidate conditioning frames, propagate
         forward then reverse, and collect per-slot outputs.
 
         ``cond_masks``: (b, S, S) float prompt masks (zeros for padding
         slots). Returns {"masks": {slot: {frame: (H, W) uint8}},
         "tokens": {slot: {frame: (d,) float32}}, "smalls": {slot: (T, sh,
-        sw) bool device tensor}}. ``collect=False`` skips the outputs and
-        returns {"banks": the final Banks}, the propagation compute
-        alone."""
+        sw) bool device tensor}}. The round's final banks stay in
+        ``self.steps.banks`` until the next round."""
         dev = self.device
         vid = np.maximum(plan.video, 0)
         cond = plan.cond.astype(np.int64)
@@ -185,8 +182,7 @@ class PackedPropagator:
         # one uint8 upload shared by the cond pass and the collect phase
         cond_u8 = torch.from_numpy(
             (np.asarray(cond_masks) > 0.5).astype(np.uint8)).to(dev)
-        banks, cond_ptr = self.cond_init(pack.feats, cond_gidx, cond_u8,
-                                         cond)
+        cond_ptr = self.cond_init(pack.feats, cond_gidx, cond_u8, cond)
         lengths = plan.length.astype(np.int64)
 
         passes = {}
@@ -202,14 +198,8 @@ class PackedPropagator:
             rows = track_step.schedule(self.cfg, sched.gidx, sched.fidx,
                                        gate(sched.active), cond)
             sched.lows, sched.ptrs = self.steps.run_pass(
-                pack.feats, rows, sched.active.sum(axis=1), reverse,
-                collect)
+                pack.feats, rows, sched.active.sum(axis=1), reverse)
             passes[reverse] = sched
-        if not collect:
-            # a copy: the predictor's banks serve its next round
-            return {"banks": Banks(**{
-                f.name: getattr(banks, f.name).clone()
-                for f in dataclasses.fields(banks)})}
         return self._collect(pack, plan, passes, cond_u8, cond_ptr)
 
     def _collect(self, pack: PackedFeatures, plan: SlotPlan, passes: dict,

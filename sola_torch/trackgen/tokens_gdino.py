@@ -6,11 +6,12 @@ tracked with ``n_max_tracks=16``, and written under
 ``<video>/<expression>/``, the nesting the data layer keys on
 (dataloader.py:122-124). Resumable per (video, expression) through
 ``runtime_info.json`` (generate_tokens_gdino.py:138-145). The predictor runs
-on ``--device`` (CUDA by default); ``--expr_pack N`` packs N expressions of
-a video into shared propagation rounds (``packed_engine``).
-Counter ``trackgen.prompts_kept``: prompts past the bin and stability
-gates, over every expression loaded; span ``trackgen.emit``: each track's
-RLE encode and file writes.
+on ``--device`` (CUDA by default); every expression goes through
+``packed_engine``, ``--expr_pack N`` expressions of a video sharing its
+propagation rounds (the default 1: one expression at a time, the
+reference's order). Counter ``trackgen.prompts_kept``: prompts past the bin
+and stability gates, over every expression loaded; span ``trackgen.emit``
+(``tokens_grid.make_on_track``): each track's RLE encode and file writes.
 """
 
 from __future__ import annotations
@@ -18,18 +19,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 from typing import Callable, Optional
 
-import numpy as np
-
-from sola_torch.core import mask_ops, rle
+from sola_torch.core import rle
 from sola_torch.data import meta as meta_lib
-from sola_torch.data import tracks as tracks_lib
 from sola_torch.trackgen import engine, gt_utils
 from sola_torch.trackgen.prefetch import StatePrefetcher
-from sola_torch.trackgen.tokens_grid import (DATA_DIR_DICT,
-                                             _default_predictor_factory)
+from sola_torch.trackgen.tokens_grid import (_default_predictor_factory,
+                                             make_on_track)
 from sola_torch.utils import profiling
 
 
@@ -67,42 +64,6 @@ def load_expression_prompts(prompt_path: str, video_id: str, bin_size: int,
     return prompts, n_not_used, n_total
 
 
-def run_expression(predictor, state, video_id: str, expression_id: str,
-                   prompt_path: str, track_root: str, dataset: str,
-                   data_type: str, n_frames: int, *,
-                   bin_size: int = 4, batch_size: int = 4,
-                   miou_thresh: float = 0.7,
-                   stability_score_thresh: float = 0.85,
-                   n_max_tracks: int = 16,
-                   gt_masklets: Optional[dict] = None,
-                   output_dir_name: str = "gdino_tracks",
-                   log: Callable[[str], None] = print) -> dict:
-    prompts, n_not_used, n_total = load_expression_prompts(
-        prompt_path, video_id, bin_size, expression_id,
-        stability_score_thresh)
-
-    @profiling.spanned("trackgen.emit")
-    def on_track(result: engine.TrackResult) -> None:
-        metrics = None
-        if gt_masklets is not None:
-            metrics = gt_utils.metrics_vs_gt(result.masklet_small,
-                                             gt_masklets)
-        tracks_lib.save_track(
-            track_root, output_dir_name, dataset, data_type, video_id,
-            result.prompt_id, rle.encode_masklet(result.masklet),
-            "SAM2 AMG MASK", result.tokens, expression_id=expression_id,
-            metrics=metrics)
-
-    census = engine.generate_tracks(
-        predictor, state, prompts, n_frames=n_frames,
-        batch_size=batch_size, miou_thresh=miou_thresh,
-        n_max_tracks=n_max_tracks, on_track=on_track,
-        scan_all_for_same_frame=False, log=log)
-    census["n_not_used"] = n_not_used
-    census["n_total"] = n_total
-    return census
-
-
 def run_expressions_packed(predictor, state, video_id: str,
                            expression_ids: list, prompt_path: str,
                            track_root: str, dataset: str, data_type: str,
@@ -117,23 +78,10 @@ def run_expressions_packed(predictor, state, video_id: str,
     """Pack several expressions of one video into shared propagation
     rounds: they share the encoded frame features (one device region) and
     their prompt batches fill the propagation batch's object slots
-    together. Per-expression artifacts and censuses match
-    ``run_expression``."""
+    together. Per-expression artifacts and censuses do not depend on the
+    packing: one expression alone is the reference's per-expression run
+    (generate_tokens_gdino.py:169-304)."""
     from sola_torch.trackgen import packed_engine
-
-    def make_on_track(expression_id):
-        @profiling.spanned("trackgen.emit")
-        def on_track(result: engine.TrackResult) -> None:
-            metrics = None
-            if gt_masklets is not None:
-                metrics = gt_utils.metrics_vs_gt(result.masklet_small,
-                                                 gt_masklets)
-            tracks_lib.save_track(
-                track_root, output_dir_name, dataset, data_type, video_id,
-                result.prompt_id, rle.encode_masklet(result.masklet),
-                "SAM2 AMG MASK", result.tokens,
-                expression_id=expression_id, metrics=metrics)
-        return on_track
 
     jobs, extras = [], {}
     for expression_id in expression_ids:
@@ -146,7 +94,9 @@ def run_expressions_packed(predictor, state, video_id: str,
             prompts=prompts, n_frames=n_frames, batch_size=batch_size,
             miou_thresh=miou_thresh, n_max_tracks=n_max_tracks,
             scan_all_for_same_frame=False,
-            on_track=make_on_track(expression_id)))
+            on_track=make_on_track(track_root, output_dir_name, dataset,
+                                   data_type, video_id, gt_masklets,
+                                   expression_id)))
     censuses = packed_engine.generate_tracks_packed(predictor, jobs,
                                                     log=log)
     out = {}
@@ -213,27 +163,18 @@ def main(argv=None, predictor_factory=None) -> None:
     args = parser.parse_args(argv)
 
     assert args.data_type in meta_lib.DATA_TYPES[args.dataset]
-    data_dir = os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
-                            args.data_type)
+    data_root = os.path.join(args.data_root, "datasets")
     prompt_dir = os.path.join(args.output_root, "sam2_prompts/gdino_prompts",
                               args.dataset, args.data_type)
     out_dir = os.path.join(args.output_root, "sam2_tracks/gdino_tracks",
                            args.dataset, args.data_type)
     track_root = os.path.join(args.output_root, "sam2_tracks")
 
-    if args.dataset == "mevis":
-        with open(os.path.join(data_dir, "meta_expressions.json")) as f:
-            meta = json.load(f)
-    else:
-        with open(os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
-                               "meta_expressions", args.data_type,
-                               "meta_expressions.json")) as f:
-            meta = json.load(f)
-
+    meta = meta_lib.load_meta(data_root, args.dataset, args.data_type)
     mask_dict = None
     if args.save_prec_rec_iou and args.dataset == "mevis":
-        with open(os.path.join(data_dir, "mask_dict.json")) as f:
-            mask_dict = json.load(f)
+        mask_dict = meta_lib.read_mask_dict(data_root, args.dataset,
+                                            args.data_type)
 
     obj_batch = args.obj_batch or (
         args.batch_size if args.expr_pack <= 1 else 8)
@@ -249,79 +190,47 @@ def main(argv=None, predictor_factory=None) -> None:
             done_snapshot = json.load(f)
     # resume-aware work list: videos whose expressions are all done are
     # skipped up front so the look-ahead never encodes a finished video
-    work = [(v, m) for i, (v, m) in enumerate(meta["videos"].items())
+    work = [v for i, (v, m) in enumerate(meta["videos"].items())
             if i % args.n_pids == args.pid
             and any(e not in done_snapshot.get(v, {})
                     for e in m["expressions"])]
 
     def frames_dir_of(video_id):
-        return os.path.join(data_dir, "JPEGImages", video_id)
+        return meta_lib.frames_dir(data_root, args.dataset, args.data_type,
+                                   video_id)
 
     prefetcher = StatePrefetcher(predictor,
                                  enabled=bool(args.prefetch_videos))
-    for work_idx, (video_id, video_meta) in enumerate(work):
-        prefetcher.schedule(video_id, frames_dir_of(video_id))
-        if work_idx + 1 < len(work):
-            prefetcher.schedule(work[work_idx + 1][0],
-                                frames_dir_of(work[work_idx + 1][0]))
-        frames_dir = frames_dir_of(video_id)
-        n_frames = len(os.listdir(frames_dir))
-
+    for (video_id,), (state,) in prefetcher.groups(work, 1, frames_dir_of):
         runtime_info = {}
         if os.path.exists(runtime_path):
             with open(runtime_path) as f:
                 runtime_info = json.load(f)
         runtime_info.setdefault(video_id, {})
 
-        gt_masklets = None
-        if args.save_prec_rec_iou:
-            if args.dataset == "mevis":
-                gt = gt_utils.get_masklets(video_id, meta, mask_dict)
-                gt_masklets = {
-                    k: np.asarray(mask_ops.reshape_masklet_auto(v))
-                    for k, v in gt.items()}
-            else:
-                gt_masklets = gt_utils.get_masklets_ytbvos(
-                    os.path.join(data_dir, "Annotations", video_id),
-                    reshape=True)
-
-        state = prefetcher.get(video_id, frames_dir)
-        pending = [e for e in video_meta["expressions"]
-                   if e not in runtime_info[video_id]]
-        if args.expr_pack > 1:
-            def on_group(censuses, video_id=video_id,
-                         runtime_info=runtime_info):
-                runtime_info[video_id].update(censuses)
-                os.makedirs(out_dir, exist_ok=True)
-                with open(runtime_path, "w") as f:
-                    json.dump(runtime_info, f, indent=4)
-
-            run_video_packed(
-                predictor, state, video_id, pending,
-                os.path.join(prompt_dir, f"{video_id}.json"), track_root,
-                args.dataset, args.data_type, n_frames,
-                expr_pack=args.expr_pack, on_group=on_group,
-                bin_size=args.bin_size, batch_size=args.batch_size,
-                miou_thresh=args.miou_thresh,
-                stability_score_thresh=args.stability_score_thresh,
-                n_max_tracks=args.n_max_tracks, gt_masklets=gt_masklets)
-            continue
-        for expression_id in pending:
-            start = time.time()
-            census = run_expression(
-                predictor, state, video_id, expression_id,
-                os.path.join(prompt_dir, f"{video_id}.json"), track_root,
-                args.dataset, args.data_type, n_frames,
-                bin_size=args.bin_size, batch_size=args.batch_size,
-                miou_thresh=args.miou_thresh,
-                stability_score_thresh=args.stability_score_thresh,
-                n_max_tracks=args.n_max_tracks, gt_masklets=gt_masklets)
-            census["time"] = time.time() - start
-            census["fps"] = n_frames / max(census["time"], 1e-9)
-            runtime_info[video_id][expression_id] = census
+        def on_group(censuses, video_id=video_id, runtime_info=runtime_info):
+            runtime_info[video_id].update(censuses)
             os.makedirs(out_dir, exist_ok=True)
             with open(runtime_path, "w") as f:
                 json.dump(runtime_info, f, indent=4)
+
+        gt_masklets = None
+        if args.save_prec_rec_iou:
+            gt_masklets = gt_utils.load_gt_masklets(
+                data_root, args.dataset, args.data_type, video_id, meta,
+                mask_dict, reshape=True)
+        pending = [e for e in meta["videos"][video_id]["expressions"]
+                   if e not in runtime_info[video_id]]
+        run_video_packed(
+            predictor, state, video_id, pending,
+            os.path.join(prompt_dir, f"{video_id}.json"), track_root,
+            args.dataset, args.data_type,
+            len(os.listdir(frames_dir_of(video_id))),
+            expr_pack=max(args.expr_pack, 1), on_group=on_group,
+            bin_size=args.bin_size, batch_size=args.batch_size,
+            miou_thresh=args.miou_thresh,
+            stability_score_thresh=args.stability_score_thresh,
+            n_max_tracks=args.n_max_tracks, gt_masklets=gt_masklets)
     prefetcher.close()
 
 

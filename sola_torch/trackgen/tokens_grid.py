@@ -20,21 +20,13 @@ import os
 import time
 from typing import Callable, Optional
 
-import numpy as np
 
-from sola_torch.core import mask_ops, rle
+from sola_torch.core import rle
 from sola_torch.data import meta as meta_lib
 from sola_torch.data import tracks as tracks_lib
 from sola_torch.trackgen import engine, gt_utils
 from sola_torch.trackgen.prefetch import StatePrefetcher
 from sola_torch.utils import profiling
-
-DATA_DIR_DICT = {
-    "mevis": "datasets/mevis",
-    "ref-ytbvos": "datasets/ref-ytbvos",
-    "ref-davis": "datasets/ref-davis",
-}
-
 
 def load_prompt_masks(prompt_path: str, video_id: str,
                       bin_size: int, exact_bin: bool = False):
@@ -92,9 +84,9 @@ def run_video(predictor, video_id: str, frames_dir: str, prompt_path: str,
         predictor, state, prompts,
         n_frames=n_frames, batch_size=batch_size, miou_thresh=miou_thresh,
         n_max_tracks=n_max_tracks,
-        on_track=_make_on_track(track_root, output_dir_name, dataset,
-                                data_type, video_id, gt_masklets),
-        scan_all_for_same_frame=True, log=log)
+        on_track=make_on_track(track_root, output_dir_name, dataset,
+                               data_type, video_id, gt_masklets),
+        log=log)
     census["n_not_used"] = n_not_used
     if census["n_tracked"] < n_max_tracks:
         assert not census["not_tracked_prompt_ids"], (
@@ -102,8 +94,11 @@ def run_video(predictor, video_id: str, frames_dir: str, prompt_path: str,
     return census
 
 
-def _make_on_track(track_root, output_dir_name, dataset, data_type,
-                   video_id, gt_masklets):
+def make_on_track(track_root, output_dir_name, dataset, data_type,
+                  video_id, gt_masklets, expression_id=None):
+    """The engines' ``on_track`` of the grid and gdino routes: each track's
+    RLE and tokens (and its prec/rec/iou against ``gt_masklets``) written
+    under ``<video>``, or ``<video>/<expression_id>`` for gdino."""
     @profiling.spanned("trackgen.emit")
     def on_track(result: engine.TrackResult) -> None:
         metrics = None
@@ -113,7 +108,8 @@ def _make_on_track(track_root, output_dir_name, dataset, data_type,
         tracks_lib.save_track(
             track_root, output_dir_name, dataset, data_type, video_id,
             result.prompt_id, rle.encode_masklet(result.masklet),
-            "SAM2 AMG MASK", result.tokens, metrics=metrics)
+            "SAM2 AMG MASK", result.tokens, expression_id=expression_id,
+            metrics=metrics)
     return on_track
 
 
@@ -149,8 +145,8 @@ def run_videos_packed(predictor, video_ids, frames_dirs, prompt_paths,
             video_id=video_id, state=state, prompts=prompts,
             n_frames=state.num_frames, batch_size=batch_size,
             miou_thresh=miou_thresh, n_max_tracks=n_max_tracks,
-            on_track=_make_on_track(track_root, output_dir_name, dataset,
-                                    data_type, video_id, gt)))
+            on_track=make_on_track(track_root, output_dir_name, dataset,
+                                   data_type, video_id, gt)))
     censuses = packed_engine.generate_tracks_packed(predictor, jobs,
                                                     log=log)
     out = {}
@@ -198,29 +194,20 @@ def main(argv=None, predictor_factory=None) -> None:
     args = parser.parse_args(argv)
 
     assert args.data_type in meta_lib.DATA_TYPES[args.dataset]
-    data_dir = os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
-                            args.data_type)
+    data_root = os.path.join(args.data_root, "datasets")
     prompt_dir = os.path.join(args.output_root, "sam2_prompts/grid_prompts",
                               args.dataset, args.data_type)
     out_dir = os.path.join(args.output_root, "sam2_tracks/grid_tracks",
                            args.dataset, args.data_type)
 
-    if args.dataset == "mevis":
-        with open(os.path.join(data_dir, "meta_expressions.json")) as f:
-            meta = json.load(f)
-    else:
-        with open(os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
-                               "meta_expressions", args.data_type,
-                               "meta_expressions.json")) as f:
-            meta = json.load(f)
-
+    meta = meta_lib.load_meta(data_root, args.dataset, args.data_type)
     mask_dict = None
     if args.save_prec_rec_iou and args.dataset == "mevis":
-        with open(os.path.join(data_dir, "mask_dict.json")) as f:
-            mask_dict = json.load(f)
+        mask_dict = meta_lib.read_mask_dict(data_root, args.dataset,
+                                            args.data_type)
 
-    obj_batch = args.obj_batch or (
-        args.batch_size if args.video_pack <= 1 else 8)
+    packed = args.video_pack > 1
+    obj_batch = args.obj_batch or (8 if packed else args.batch_size)
     if predictor_factory is None:
         predictor_factory = _default_predictor_factory(args.sam2_ckpt,
                                                        obj_batch, args.device)
@@ -232,66 +219,39 @@ def main(argv=None, predictor_factory=None) -> None:
             if i % args.n_pids == args.pid]
 
     def frames_dir_of(video_id: str) -> str:
-        return os.path.join(data_dir, "JPEGImages", video_id)
-
-    prefetcher = StatePrefetcher(predictor,
-                                 enabled=bool(args.prefetch_videos))
+        return meta_lib.frames_dir(data_root, args.dataset, args.data_type,
+                                   video_id)
 
     def gt_for(video_id: str):
         if not args.save_prec_rec_iou:
             return None
-        if args.dataset == "mevis":
-            gt = gt_utils.get_masklets(video_id, meta, mask_dict)
-            return {k: np.asarray(mask_ops.reshape_masklet_auto(v))
-                    for k, v in gt.items()}
-        return gt_utils.get_masklets_ytbvos(
-            os.path.join(data_dir, "Annotations", video_id), reshape=True)
+        return gt_utils.load_gt_masklets(data_root, args.dataset,
+                                         args.data_type, video_id, meta,
+                                         mask_dict, reshape=True)
 
-    if args.video_pack > 1:
-        for g0 in range(0, len(work), args.video_pack):
-            group = work[g0:g0 + args.video_pack]
-            for vid in group:
-                prefetcher.schedule(vid, frames_dir_of(vid))
-            # overlap the whole next group's encodes with this group's
-            # packed rounds, not just its first video
-            for nxt in work[g0 + args.video_pack:
-                            g0 + 2 * args.video_pack]:
-                prefetcher.schedule(nxt, frames_dir_of(nxt))
-            states = {vid: prefetcher.get(vid, frames_dir_of(vid))
-                      for vid in group}
-            censuses = run_videos_packed(
+    kw = dict(bin_size=args.bin_size, batch_size=args.batch_size,
+              miou_thresh=args.miou_thresh, n_max_tracks=args.n_max_tracks)
+    prefetcher = StatePrefetcher(predictor,
+                                 enabled=bool(args.prefetch_videos))
+    for group, states in prefetcher.groups(
+            work, args.video_pack if packed else 1, frames_dir_of):
+        if packed:
+            runtime_info.update(run_videos_packed(
                 predictor, group, [frames_dir_of(v) for v in group],
                 [os.path.join(prompt_dir, f"{v}.json") for v in group],
                 out_dir, args.dataset, args.data_type,
-                bin_size=args.bin_size, batch_size=args.batch_size,
-                miou_thresh=args.miou_thresh,
-                n_max_tracks=args.n_max_tracks,
                 gt_masklets_by_video={v: gt_for(v) for v in group},
-                states=states)
-            runtime_info.update(censuses)
-            os.makedirs(out_dir, exist_ok=True)
-            with open(runtime_path, "w") as f:
-                json.dump(runtime_info, f, indent=4)
-        prefetcher.close()
-        return
-
-    for work_idx, video_id in enumerate(work):
-        prefetcher.schedule(video_id, frames_dir_of(video_id))
-        if work_idx + 1 < len(work):
-            prefetcher.schedule(work[work_idx + 1],
-                                frames_dir_of(work[work_idx + 1]))
-        start = time.time()
-        gt_masklets = gt_for(video_id)
-        census = run_video(
-            predictor, video_id, frames_dir_of(video_id),
-            os.path.join(prompt_dir, f"{video_id}.json"),
-            out_dir, args.dataset, args.data_type,
-            bin_size=args.bin_size, batch_size=args.batch_size,
-            miou_thresh=args.miou_thresh, n_max_tracks=args.n_max_tracks,
-            gt_masklets=gt_masklets,
-            state=prefetcher.get(video_id, frames_dir_of(video_id)))
-        census["time"] = time.time() - start
-        runtime_info[video_id] = census
+                states=dict(zip(group, states)), **kw))
+        else:
+            video_id, = group
+            start = time.time()
+            census = run_video(
+                predictor, video_id, frames_dir_of(video_id),
+                os.path.join(prompt_dir, f"{video_id}.json"),
+                out_dir, args.dataset, args.data_type,
+                gt_masklets=gt_for(video_id), state=states[0], **kw)
+            census["time"] = time.time() - start
+            runtime_info[video_id] = census
         os.makedirs(out_dir, exist_ok=True)
         with open(runtime_path, "w") as f:
             json.dump(runtime_info, f, indent=4)

@@ -3,13 +3,14 @@
 Counterpart of ``sola_tpu/trackgen/tokens_gt.py``
 (generate_tokens_GT_{mevis,ytbvos}.py): each GT object yields one seed per
 appearance onset (gt_utils.get_prompt_masks, the function the reference
-calls but never defines, SURVEY.md §2.5); each seed is tracked in its own
-reset + bidirectional propagation and saved as a ``gt_tracks`` artifact
-named by a running (object, seed) counter with ``prompt_type: "GT MASK"``,
-the reference's output scheme (generate_tokens_GT_mevis.py:95-160; not
-keyed by GT anno id: that mapping lives in runtime_info's ``gt_anno_id``
-field). ``--video_pack N`` packs N videos' seeds into shared propagation
-rounds. The predictor runs on ``--device`` (CUDA by default).
+calls but never defines, SURVEY.md §2.5); each seed is a slot of a
+bidirectional ``PackedPropagator`` round and saved as a ``gt_tracks``
+artifact named by a running (object, seed) counter with ``prompt_type: "GT
+MASK"``, the reference's output scheme (generate_tokens_GT_mevis.py:95-160;
+not keyed by GT anno id: that mapping lives in runtime_info's
+``gt_anno_id`` field). ``--video_pack N`` packs N videos' seeds into shared
+rounds; the default, one video and one slot a round, is the reference's
+one seed a pass. The predictor runs on ``--device`` (CUDA by default).
 """
 
 from __future__ import annotations
@@ -27,33 +28,7 @@ from sola_torch.data import meta as meta_lib
 from sola_torch.data import tracks as tracks_lib
 from sola_torch.trackgen import gt_utils
 from sola_torch.trackgen.prefetch import StatePrefetcher
-from sola_torch.trackgen.tokens_grid import DATA_DIR_DICT
 from sola_torch.utils import profiling
-
-
-def run_gt_seed(predictor, state, seed: dict, n_frames: int) -> dict:
-    """Track one appearance-onset seed (reference semantics: a fresh
-    reset_state + obj_id=0 propagation per seed, so a re-appearing GT
-    object yields one track per onset; generate_tokens_GT_mevis.py:98-131
-    loops ``prompt_mask_infos`` with a per-seed pass and a running output
-    counter)."""
-    predictor.reset_state(state)
-    masklet = [None] * n_frames
-    _, _, logits = predictor.add_new_mask(
-        state, seed["frame_idx"], 0, seed["mask"])
-    masklet[seed["frame_idx"]] = (
-        np.asarray(logits[0]) > 0.0).astype(np.uint8)
-    for reverse in (False, True):
-        for frame_idx, _, logits in predictor.propagate_in_video(
-                state, reverse=reverse):
-            masklet[frame_idx] = (np.asarray(logits[0, 0]) > 0.0).astype(
-                np.uint8)
-    assert all(m is not None for m in masklet)
-    masklet = np.stack(masklet, axis=0)
-    tokens_by_frame = predictor.get_output_tokens(state)
-    tokens = np.stack([np.asarray(tokens_by_frame[f][0])
-                       for f in range(n_frames)], axis=0)
-    return {"masklet": masklet, "tokens": tokens}
 
 
 def gt_seed_units(gt_masklets: dict) -> list:
@@ -94,25 +69,6 @@ def _entry(elapsed, n_frames, gt_anno_id, seed) -> dict:
 
 
 @profiling.spanned("trackgen.track")
-def run_video(predictor, state, video_id: str, gt_masklets: dict,
-              n_frames: int, track_root: str, dataset: str, data_type: str,
-              *, save_prec_rec_iou: bool = False,
-              output_dir_name: str = "gt_tracks",
-              log: Callable[[str], None] = print) -> dict:
-    census = {}
-    for out_id, gt_anno_id, seed in gt_seed_units(gt_masklets):
-        start = time.time()
-        out = run_gt_seed(predictor, state, seed, n_frames)
-        _save(track_root, output_dir_name, dataset, data_type, video_id,
-              out_id, out, gt_masklets, save_prec_rec_iou)
-        census[str(out_id)] = _entry(time.time() - start, n_frames,
-                                     gt_anno_id, seed)
-        log(f"video {video_id} track {out_id} (gt {gt_anno_id}): "
-            f"{census[str(out_id)]['time']:.2f}s")
-    return census
-
-
-@profiling.spanned("trackgen.track")
 def run_videos_packed_gt(predictor, items, track_root: str, dataset: str,
                          data_type: str, *, save_prec_rec_iou: bool = False,
                          output_dir_name: str = "gt_tracks",
@@ -123,8 +79,9 @@ def run_videos_packed_gt(predictor, items, track_root: str, dataset: str,
     (generate_tokens_GT_mevis.py:110-116, obj_id=0), one slot of the
     object batch. Every seed is a single-cond (video, object) slot, so
     ``PackedPropagator`` rounds carry up to ``obj_batch`` of them at once,
-    across videos and across a re-appearing object's onsets. Artifacts
-    match per-seed ``run_video`` calls.
+    across videos and across a re-appearing object's onsets. Artifacts do
+    not depend on the packing: at ``obj_batch`` 1 and one video a call,
+    each round is the reference's per-seed pass.
 
     ``items``: [{"video_id", "state", "gt_masklets", "n_frames"}], states
     already encoded.
@@ -216,25 +173,19 @@ def main(argv=None, predictor_factory=None) -> None:
     args = parser.parse_args(argv)
 
     assert args.data_type in meta_lib.DATA_TYPES[args.dataset]
-    data_dir = os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
-                            args.data_type)
+    data_root = os.path.join(args.data_root, "datasets")
     track_root = os.path.join(args.output_root, "sam2_tracks")
     out_dir = os.path.join(track_root, "gt_tracks", args.dataset,
                            args.data_type)
 
+    meta = meta_lib.load_meta(data_root, args.dataset, args.data_type)
+    mask_dict = None
     if args.dataset == "mevis":
-        with open(os.path.join(data_dir, "meta_expressions.json")) as f:
-            meta = json.load(f)
-        with open(os.path.join(data_dir, "mask_dict.json")) as f:
-            mask_dict = json.load(f)
-    else:
-        with open(os.path.join(args.data_root, DATA_DIR_DICT[args.dataset],
-                               "meta_expressions", args.data_type,
-                               "meta_expressions.json")) as f:
-            meta = json.load(f)
-        mask_dict = None
+        mask_dict = meta_lib.read_mask_dict(data_root, args.dataset,
+                                            args.data_type)
 
-    obj_batch = args.obj_batch or (1 if args.video_pack <= 1 else 8)
+    pack = max(args.video_pack, 1)
+    obj_batch = args.obj_batch or (1 if pack == 1 else 8)
     if predictor_factory is None:
         from sola_torch.trackgen.tokens_grid import _default_predictor_factory
         predictor_factory = _default_predictor_factory(
@@ -251,53 +202,24 @@ def main(argv=None, predictor_factory=None) -> None:
             if i % args.n_pids == args.pid and v not in runtime_info]
 
     def frames_dir_of(video_id):
-        return os.path.join(data_dir, "JPEGImages", video_id)
-
-    def gt_of(video_id):
-        if args.dataset == "mevis":
-            return gt_utils.get_masklets(video_id, meta, mask_dict)
-        return gt_utils.get_masklets_ytbvos(
-            os.path.join(data_dir, "Annotations", video_id))
-
-    def write_runtime():
-        os.makedirs(out_dir, exist_ok=True)
-        with open(runtime_path, "w") as f:
-            json.dump(runtime_info, f, indent=4)
+        return meta_lib.frames_dir(data_root, args.dataset, args.data_type,
+                                   video_id)
 
     prefetcher = StatePrefetcher(predictor,
                                  enabled=bool(args.prefetch_videos))
-    if args.video_pack > 1:
-        for g0 in range(0, len(work), args.video_pack):
-            group = work[g0:g0 + args.video_pack]
-            for vid in group:
-                prefetcher.schedule(vid, frames_dir_of(vid))
-            # overlap the whole next group's encodes with this group's
-            # packed rounds, not just its first video
-            for nxt in work[g0 + args.video_pack:
-                            g0 + 2 * args.video_pack]:
-                prefetcher.schedule(nxt, frames_dir_of(nxt))
-            items = [{"video_id": vid,
-                      "state": prefetcher.get(vid, frames_dir_of(vid)),
-                      "gt_masklets": gt_of(vid),
-                      "n_frames": len(os.listdir(frames_dir_of(vid)))}
-                     for vid in group]
-            runtime_info.update(run_videos_packed_gt(
-                predictor, items, track_root, args.dataset, args.data_type,
-                save_prec_rec_iou=args.save_prec_rec_iou))
-            write_runtime()
-    else:
-        for work_idx, video_id in enumerate(work):
-            prefetcher.schedule(video_id, frames_dir_of(video_id))
-            if work_idx + 1 < len(work):
-                prefetcher.schedule(work[work_idx + 1],
-                                    frames_dir_of(work[work_idx + 1]))
-            frames_dir = frames_dir_of(video_id)
-            runtime_info[video_id] = run_video(
-                predictor, prefetcher.get(video_id, frames_dir), video_id,
-                gt_of(video_id), len(os.listdir(frames_dir)), track_root,
-                args.dataset, args.data_type,
-                save_prec_rec_iou=args.save_prec_rec_iou)
-            write_runtime()
+    for group, states in prefetcher.groups(work, pack, frames_dir_of):
+        items = [{"video_id": vid, "state": state,
+                  "gt_masklets": gt_utils.load_gt_masklets(
+                      data_root, args.dataset, args.data_type, vid, meta,
+                      mask_dict, reshape=False),
+                  "n_frames": len(os.listdir(frames_dir_of(vid)))}
+                 for vid, state in zip(group, states)]
+        runtime_info.update(run_videos_packed_gt(
+            predictor, items, track_root, args.dataset, args.data_type,
+            save_prec_rec_iou=args.save_prec_rec_iou))
+        os.makedirs(out_dir, exist_ok=True)
+        with open(runtime_path, "w") as f:
+            json.dump(runtime_info, f, indent=4)
     prefetcher.close()
 
 

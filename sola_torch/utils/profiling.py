@@ -74,16 +74,18 @@ class _Span:
         stack = _open()
         self.parent = stack[-1] if stack else None
         self.id = next(_ids)
-        self.start = _clock()
+        # the annotation is built before the clock is read, so the entry
+        # brackets only its enter and exit
         self.note = torch.profiler.record_function(self.name)
+        self.start = _clock()
         self.note.__enter__()
         stack.append(self)
         return self
 
     def __exit__(self, *exc):
-        _open().pop()
         self.note.__exit__(*exc)
         end = _clock()
+        _open().pop()
         p = self.parent
         _spans.append((self.id, self.name, p.id if p else None,
                        p.name if p else None, self.start, end,

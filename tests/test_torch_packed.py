@@ -266,8 +266,8 @@ def test_ungated_push_breaks_agreement(predictors, monkeypatch):
 
 
 def test_run_round_collect_false_banks(predictors):
-    """collect=False runs the same compute without the outputs, and runs
-    the same twice."""
+    """A round leaves its final banks in ``prop.steps.banks``, and the
+    same round run again leaves the same banks."""
     _, tpred = predictors
     t, hw = 5, (48, 64)
     state = tpred.init_state(make_video(t, hw, seed=9))
@@ -278,16 +278,14 @@ def test_run_round_collect_false_banks(predictors):
     plan = tpacked.SlotPlan(video=np.asarray([0, -1, -1, -1]),
                             cond=np.zeros(4, np.int64),
                             length=np.asarray([t, 1, 1, 1]))
-    full = prop.run_round(pack, plan, cm, collect=True)
+    full = prop.run_round(pack, plan, cm)
     assert sorted(full["masks"]) == [0] and len(full["masks"][0]) == t
-    first = prop.run_round(pack, plan, cm, collect=False)
-    assert set(first) == {"banks"}
-    ring = first["banks"].recent_mem.clone()
-    assert torch.isfinite(ring).all() and bool(
-        first["banks"].recent_valid[0].any())
-    again = prop.run_round(pack, plan, cm, collect=False)
-    assert torch.equal(ring, again["banks"].recent_mem)
-    assert torch.equal(first["banks"].obj_ptrs, again["banks"].obj_ptrs)
+    first = prop.steps.banks
+    ring, ptrs = first.recent_mem.clone(), first.obj_ptrs.clone()
+    assert torch.isfinite(ring).all() and bool(first.recent_valid[0].any())
+    prop.run_round(pack, plan, cm)
+    assert torch.equal(ring, prop.steps.banks.recent_mem)
+    assert torch.equal(ptrs, prop.steps.banks.obj_ptrs)
 
 
 def _grid_workspace(root):
@@ -382,7 +380,8 @@ def test_tokens_grid_cli_video_pack(tmp_path, predictors):
 
 def test_run_expressions_packed_matches_jax(tmp_path, predictors):
     """Expression packing on one shared state in both packages, and the
-    port's packed run against its run_expression."""
+    port's packed run against its pack width 1 (``run_video_packed`` at
+    ``expr_pack`` 1, the CLI's default: one expression a group)."""
     jpred, tpred = predictors
     t, hw = 5, (48, 64)
     frames = make_video(t, hw, seed=5)
@@ -412,9 +411,9 @@ def test_run_expressions_packed_matches_jax(tmp_path, predictors):
             roots[name], "mevis", "valid_u", t, **kw)
     seq_root = str(tmp_path / "seq" / "sam2_tracks")
     state = tpred.init_state(frames)
-    seq = {e: ttokens_gdino.run_expression(
-        tpred, state, "vid0", e, prompt_path, seq_root, "mevis", "valid_u",
-        t, **kw) for e in exprs}
+    seq = ttokens_gdino.run_video_packed(
+        tpred, state, "vid0", exprs, prompt_path, seq_root, "mevis",
+        "valid_u", t, expr_pack=1, **kw)
     for e in exprs:
         for k in ("n_total", "n_not_used", "n_tracked", "n_filtered",
                   "tracked_prompt_ids", "filtered_prompt_ids"):

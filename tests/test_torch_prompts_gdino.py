@@ -1,7 +1,7 @@
 """The GroundingDINO slice end to end in both packages at tiny size, fp32 on
 the CPU, with shared weights: SAM2ImagePredictor.predict_packed, the
-pipelined generate_video_prompts, tokens_gdino.run_expression on the prompt
-JSON, and both CLIs over a MeViS-layout workspace. Scores and stability
+pipelined generate_video_prompts, tokens_gdino's expressions one a group
+(the CLI's default) on the prompt JSON, and both CLIs over a MeViS-layout workspace. Scores and stability
 agree within 1e-4, boxes within 1e-3 px, masks within 0.5% of their pixels
 (a logit at the 0 threshold may round either way), censuses exactly."""
 
@@ -304,22 +304,30 @@ def _assert_same_tracks(tt, jt):
 
 
 def test_run_expression_matches_jax(stack, prompt_infos, tmp_path):
-    """tokens_gdino.run_expression on the JAX package's prompt JSON, in
-    both packages: census equal, masklets and tokens within tolerance."""
+    """One expression on the JAX package's prompt JSON, through the
+    port's default route (``run_video_packed`` at ``expr_pack`` 1) and
+    sola_tpu's run_expression: census equal, masklets and tokens within
+    tolerance."""
     frames, infos = prompt_infos
     path = str(tmp_path / f"{VID}.json")
     with open(path, "w") as f:
         json.dump(infos["jax"], f)
     for expression_id in EXPRESSIONS:
         res = {}
-        for name, mod, pred in (("jax", jtokens, stack["video"][0]),
-                                ("torch", ttokens, stack["video"][1])):
-            root = str(tmp_path / name)
-            census = mod.run_expression(
-                pred, pred.init_state(frames), VID, expression_id, path,
-                root, "mevis", "valid_u", T, bin_size=4, batch_size=2,
-                stability_score_thresh=STAB_THRESH, n_max_tracks=3,
-                log=lambda s: None)
+        kw = dict(bin_size=4, batch_size=2,
+                  stability_score_thresh=STAB_THRESH, n_max_tracks=3,
+                  log=lambda s: None)
+        for name in ("jax", "torch"):
+            pred, root = stack["video"][name == "torch"], str(tmp_path / name)
+            state = pred.init_state(frames)
+            if name == "jax":
+                census = jtokens.run_expression(
+                    pred, state, VID, expression_id, path, root, "mevis",
+                    "valid_u", T, **kw)
+            else:
+                census = ttokens.run_video_packed(
+                    pred, state, VID, [expression_id], path, root, "mevis",
+                    "valid_u", T, expr_pack=1, **kw)[expression_id]
             res[name] = (census, root)
         (tc, troot), (jc, jroot) = res["torch"], res["jax"]
         assert _strip(tc) == _strip(jc)

@@ -1,12 +1,14 @@
 """GT-prompted tracks in both packages at tiny size, fp32 on the CPU, with
-shared weights: gt_seed_units, run_video (one slot a pass),
-run_videos_packed_gt and main on a MeViS layout of JPEG frames. The videos
-are tests/test_packed.py::test_gt_packed_matches_sequential's: one object
+shared weights: gt_seed_units, the port's run_videos_packed_gt one video a
+call at one slot a round (the CLI's default) against JAX's run_video (one
+slot a pass) and packed at 4 slots, and main on a MeViS and a Ref-YTVOS
+layout of JPEG frames. The videos are
+tests/test_packed.py::test_gt_packed_matches_sequential's: one object
 re-appears (two onsets, two tracks) and one first appears at frame 3, so
 its packed slot has an onset above 0 beside longer slots. Port against
-JAX: per-frame mask disagreement <= 1e-3, tokens within 1e-4. Port packed
-against port sequential: RLE equal, tokens and prec/rec/iou within
-1e-5."""
+JAX: per-frame mask disagreement <= 1e-3, tokens within 1e-4. Port at 4
+slots and several videos a pack against the port at 1 slot and one video:
+RLE equal, tokens and prec/rec/iou within 1e-5."""
 
 import json
 import os
@@ -19,6 +21,7 @@ from sola_tpu.core import rle as jrle
 from sola_tpu.trackgen import tokens_gt as jtokens_gt
 from sola_torch.core import rle as trle
 from sola_torch.trackgen import tokens_gt as ttokens_gt
+from test_gt_formats import save_palette_png
 from test_packed import make_video
 from test_torch_packed import (PIX_FRAC, TOK_ATOL, jax_variables,
                                predictor_pair)
@@ -110,21 +113,26 @@ def encoded(pred):
             for vid, t, hw, seed, _ in VIDEOS}
 
 
-def run_sequential(mod, pred, root):
+def run_sequential(pred, root):
+    """sola_tpu's run_video: one seed a pass."""
     states = encoded(pred)
-    return {vid: mod.run_video(pred, states[vid], vid, gts, t, root,
-                               "mevis", "train", save_prec_rec_iou=True,
-                               log=lambda s: None)
+    return {vid: jtokens_gt.run_video(pred, states[vid], vid, gts, t, root,
+                                      "mevis", "train",
+                                      save_prec_rec_iou=True,
+                                      log=lambda s: None)
             for vid, t, hw, _seed, gts in VIDEOS}
 
 
-def run_packed(mod, pred, root):
+def run_packed(mod, pred, root, *, videos_a_call=len(VIDEOS)):
     states = encoded(pred)
     items = [{"video_id": vid, "state": states[vid], "gt_masklets": gts,
               "n_frames": t} for vid, t, hw, _seed, gts in VIDEOS]
-    return mod.run_videos_packed_gt(pred, items, root, "mevis", "train",
-                                    save_prec_rec_iou=True,
-                                    log=lambda s: None)
+    census = {}
+    for i in range(0, len(items), videos_a_call):
+        census.update(mod.run_videos_packed_gt(
+            pred, items[i:i + videos_a_call], root, "mevis", "train",
+            save_prec_rec_iou=True, log=lambda s: None))
+    return census
 
 
 def untimed(runtime_info):
@@ -158,9 +166,12 @@ def test_gt_seed_units_match_jax():
 
 
 def test_run_video_matches_jax(tmp_path, predictors):
+    """The port's default route (one video a call, one slot a round)
+    against sola_tpu's run_video."""
     jpred, tpred = predictors[1]
-    jc = run_sequential(jtokens_gt, jpred, str(tmp_path / "jax"))
-    tc = run_sequential(ttokens_gt, tpred, str(tmp_path / "torch"))
+    jc = run_sequential(jpred, str(tmp_path / "jax"))
+    tc = run_packed(ttokens_gt, tpred, str(tmp_path / "torch"),
+                    videos_a_call=1)
     assert_census(tc)
     assert untimed(tc) == untimed(jc)
     assert_same_artifacts(collect(str(tmp_path / "jax")),
@@ -170,12 +181,13 @@ def test_run_video_matches_jax(tmp_path, predictors):
 
 
 def test_packed_gt_matches_sequential(tmp_path, predictors):
-    """Packed rounds (obj_batch 4: the 6 seeds take a full round and a
-    round of 2 slots and 2 padding) against one seed a pass (obj_batch 1),
-    both in the port."""
+    """Packed rounds (obj_batch 4, both videos in one pack: the 6 seeds
+    take a full round and a round of 2 slots and 2 padding) against the
+    pack width 1 (obj_batch 1, one video a call: one seed a round), both
+    in the port."""
     _, seq_pred = predictors[1]
     _, pk_pred = predictors[4]
-    run_sequential(ttokens_gt, seq_pred, str(tmp_path / "seq"))
+    run_packed(ttokens_gt, seq_pred, str(tmp_path / "seq"), videos_a_call=1)
     census = run_packed(ttokens_gt, pk_pred, str(tmp_path / "pk"))
     assert_census(census)
     assert_same_artifacts(collect(str(tmp_path / "seq")),
@@ -195,33 +207,55 @@ def test_packed_gt_matches_jax(tmp_path, predictors):
                           metric_atol=PIX_FRAC)
 
 
-def write_mevis_train(root):
-    """A MeViS train layout: JPEGImages, meta_expressions.json and
-    mask_dict.json for VIDEOS, GT objects keyed by anno id."""
+def write_train_split(root, dataset):
+    """A train split of VIDEOS on JPEG frames: MeViS's
+    meta_expressions.json and mask_dict.json (GT objects keyed by anno id),
+    or Ref-YTVOS's meta_expressions/train/meta_expressions.json and
+    palette-PNG Annotations (GT objects keyed by palette index)."""
     from PIL import Image
-    data_dir = root / "datasets" / "mevis" / "train"
+    data_dir = root / "datasets" / dataset / "train"
     meta, mask_dict = {"videos": {}}, {}
     for vid, t, hw, seed, gts in VIDEOS:
         frames_dir = data_dir / "JPEGImages" / vid
         frames_dir.mkdir(parents=True)
         for i, f in enumerate(make_video(t, hw, seed=seed)):
             Image.fromarray(f).save(frames_dir / f"{i:05d}.jpg")
+        key = "anno_id" if dataset == "mevis" else "obj_id"
         meta["videos"][vid] = {
             "frames": [f"{i:05d}" for i in range(t)],
             "expressions": {str(e): {"exp": f"object {g}",
-                                     "anno_id": [int(g)]}
+                                     key: [int(g)] if key == "anno_id"
+                                     else g}
                             for e, g in enumerate(gts)}}
-        for g, m in gts.items():
-            mask_dict[g] = [jrle.encode(f) if f.any() else None for f in m]
-    (data_dir / "meta_expressions.json").write_text(json.dumps(meta))
-    (data_dir / "mask_dict.json").write_text(json.dumps(mask_dict))
+        if dataset == "mevis":
+            for g, m in gts.items():
+                mask_dict[g] = [jrle.encode(f) if f.any() else None
+                                for f in m]
+            continue
+        anno_dir = data_dir / "Annotations" / vid
+        anno_dir.mkdir(parents=True)
+        for i in range(t):
+            index = np.zeros(hw, np.uint8)
+            for g, m in gts.items():
+                index[m[i] > 0] = int(g)
+            save_palette_png(index, anno_dir / f"{i:05d}.png")
+    if dataset == "mevis":
+        (data_dir / "meta_expressions.json").write_text(json.dumps(meta))
+        (data_dir / "mask_dict.json").write_text(json.dumps(mask_dict))
+    else:
+        meta_dir = root / "datasets" / dataset / "meta_expressions" / "train"
+        meta_dir.mkdir(parents=True)
+        (meta_dir / "meta_expressions.json").write_text(json.dumps(meta))
 
 
-def test_main_mevis_layout(tmp_path, predictors):
-    """tokens_gt.main sequential in both packages and --video_pack 2 in
-    the port, on JPEG frames: the same artifact set and runtime_info."""
-    write_mevis_train(tmp_path)
-    argv = ["--data_root", str(tmp_path), "--save_prec_rec_iou"]
+@pytest.mark.parametrize("dataset", ["mevis", "ref-ytbvos"])
+def test_main_mevis_layout(tmp_path, predictors, dataset):
+    """tokens_gt.main at its defaults in both packages and --video_pack 2
+    in the port, on JPEG frames of a MeViS or a Ref-YTVOS layout: the same
+    artifact set and runtime_info."""
+    write_train_split(tmp_path, dataset)
+    argv = ["--data_root", str(tmp_path), "--save_prec_rec_iou",
+            "--dataset", dataset]
     runs = (("jax", jtokens_gt, predictors[1][0], []),
             ("seq", ttokens_gt, predictors[1][1], ["--device", "cpu"]),
             ("pk", ttokens_gt, predictors[4][1],
@@ -231,7 +265,7 @@ def test_main_mevis_layout(tmp_path, predictors):
         out = tmp_path / name
         mod.main(argv + ["--output_root", str(out)] + extra,
                  predictor_factory=lambda p=pred: p)
-        with open(out / "sam2_tracks" / "gt_tracks" / "mevis" / "train"
+        with open(out / "sam2_tracks" / "gt_tracks" / dataset / "train"
                   / "runtime_info.json") as fh:
             infos[name] = json.load(fh)
     assert untimed(infos["seq"]) == untimed(infos["jax"]) == \
@@ -244,14 +278,14 @@ def test_main_mevis_layout(tmp_path, predictors):
     arts = {name: collect(str(tmp_path / name / "sam2_tracks"))
             for name, *_ in runs}
     for a in arts.values():
-        a.pop(os.path.join("gt_tracks", "mevis", "train",
+        a.pop(os.path.join("gt_tracks", dataset, "train",
                            "runtime_info.json"))
     assert_same_artifacts(arts["jax"], arts["seq"], trle, exact_rle=False,
                           tok_atol=TOK_ATOL, metric_atol=PIX_FRAC)
     assert_same_artifacts(arts["seq"], arts["pk"], trle, exact_rle=True,
                           tok_atol=GT_ATOL, metric_atol=GT_ATOL)
     # a second run resumes: every video is in runtime_info, nothing reruns
-    path = tmp_path / "seq" / "sam2_tracks" / "gt_tracks" / "mevis" / \
+    path = tmp_path / "seq" / "sam2_tracks" / "gt_tracks" / dataset / \
         "train" / "runtime_info.json"
     before = os.path.getmtime(path)
     ttokens_gt.main(argv + ["--output_root", str(tmp_path / "seq"),

@@ -392,9 +392,9 @@ def test_packed_gt_counters_equal_the_slot_plans(predictor, tmp_path,
     plans = []
     orig = packed.PackedPropagator.run_round
 
-    def spy(self, pack, plan, cond_masks, collect=True):
+    def spy(self, pack, plan, cond_masks):
         plans.append(plan)
-        return orig(self, pack, plan, cond_masks, collect)
+        return orig(self, pack, plan, cond_masks)
     monkeypatch.setattr(packed.PackedPropagator, "run_round", spy)
     (items, _), _, snap = _traced(run_gt_packed, predictor, tmp_path)
     b, d = predictor.obj_batch, predictor.cfg.d_model
